@@ -1,0 +1,154 @@
+"""The port's page-synthesis slice (vkit_tpu_torch/synth/device.py) against
+vkit_tpu's synthesize_page_batch with the photometric stage off: same
+pages, same rng, so the same plans and crop windows, draw for draw."""
+import numpy as np
+import pytest
+import torch
+
+from tests.pipeline.fixtures import build_assets
+from vkit_tpu.synth import CropConfig, SynthPlanner, SynthPlannerConfig
+from vkit_tpu.synth import synthesize_page_batch as jax_synthesize
+from vkit_tpu_torch.synth import synthesize_page_batch, synthesize_stream
+
+torch.set_num_threads(1)
+
+OUT = (256, 256)
+CROP = CropConfig(core_size=192, num_per_page=2)
+
+
+@pytest.fixture(scope='module')
+def assets(tmp_path_factory):
+    return build_assets(tmp_path_factory.mktemp('torch_synth_assets'))
+
+
+def _planner(assets, full_content: bool):
+    extra = {}
+    if full_content:
+        selector = [{'type': 'selector', 'weight': 1,
+                     'config': {'image_folders': [assets['bg_image_folder']]}}]
+        extra = dict(
+            background_image_configs=selector,
+            image_configs=selector,
+            symbol_image_folders=[assets['symbol_image_folder']],
+            enable_barcodes=True,
+            enable_seal_impressions=True,
+            enable_text_line_bounding_boxes=True,
+        )
+    # The 320 x 320 planner of tests/synth/test_synth.py.
+    return SynthPlanner(SynthPlannerConfig(
+        lexicon_collection_json=assets['lexicon_json'],
+        font_collection_folder=assets['font_collection_folder'],
+        char_sampler_configs=[{
+            'type': 'corpus', 'weight': 1,
+            'config': {'txt_files': [assets['corpus_txt']]},
+        }],
+        page_height=320, page_width=320, **extra,
+    ))
+
+
+@pytest.fixture(scope='module')
+def planners(assets):
+    return {'text': _planner(assets, False), 'full': _planner(assets, True)}
+
+
+def _boxes(boxes):
+    return [(b.up, b.down, b.left, b.right) for b in boxes]
+
+
+def assert_same_result(ref, got):
+    assert np.array_equal(ref.active_masks, got.active_masks)
+    assert _boxes(ref.content_boxes) == _boxes(got.content_boxes)
+    for ref_pages, got_pages in ((ref.word_polygons, got.word_polygons),
+                                 (ref.char_polygons, got.char_polygons)):
+        for a_page, b_page in zip(ref_pages, got_pages):
+            assert len(a_page) == len(b_page)
+            for a, b in zip(a_page, b_page):
+                assert np.array_equal(a.to_np_array(), b.to_np_array())
+    active = ref.active_masks > 0
+    assert active.any()
+    img = np.abs(ref.images.astype(int) - got.images.astype(int))
+    assert img[active].max() <= 1
+    lab = np.abs(ref.label_stack - got.label_stack)
+    assert lab[active].max() <= 1e-2
+    assert ref.num_crops == got.num_crops
+    if ref.num_crops:
+        count = ref.num_crops
+        assert np.array_equal(ref.crop_windows, got.crop_windows)
+        assert np.array_equal(ref.crop_page_ids, got.crop_page_ids)
+        assert got.crop_images.shape[0] == count
+        crop = np.abs(ref.crop_images[:count].astype(int)
+                      - got.crop_images.astype(int))
+        assert crop.max() <= 1
+        assert np.array_equal(ref.crop_active[:count], got.crop_active)
+
+
+@pytest.mark.parametrize('content,seed', [('text', 5), ('full', 6)])
+def test_page_batch_matches_jax(planners, content, seed):
+    pages = planners[content].prepare_batch(2, np.random.default_rng(seed))
+    if content == 'full':
+        assert any(p.overlay_entries for p in pages)
+    ref = jax_synthesize(pages, 5, np.random.default_rng(seed + 100),
+                         out_shape=OUT, enable_photometric=False,
+                         crop_config=CROP)
+    got = synthesize_page_batch(pages, 5, np.random.default_rng(seed + 100),
+                                out_shape=OUT, crop_config=CROP,
+                                device='cpu')
+    assert isinstance(got.images, np.ndarray)
+    assert got.images.shape == (2,) + OUT + (3,)
+    assert_same_result(ref, got)
+
+
+def test_no_geometric_matches_jax(planners):
+    """Nop plans: the affine route and the constant-stretch finish."""
+    pages = planners['text'].prepare_batch(2, np.random.default_rng(8))
+    ref = jax_synthesize(pages, 5, np.random.default_rng(1),
+                         enable_photometric=False, enable_geometric=False)
+    got = synthesize_page_batch(pages, 5, np.random.default_rng(1),
+                                enable_geometric=False, device='cpu')
+    assert_same_result(ref, got)
+
+
+def test_stream_matches_jax(planners):
+    """The stream's per-batch child rngs drive prep and synthesis; the
+    reference run replays them through vkit_tpu batch by batch."""
+    planner = planners['text']
+    got = list(synthesize_stream(planner, 2, 5, np.random.default_rng(9),
+                                 num_batches=2, out_shape=OUT,
+                                 crop_config=CROP, device='cpu'))
+    rng = np.random.default_rng(9)
+    seeds = [int(rng.integers(0, 2**63 - 1)) for _ in range(2)]
+    assert len(got) == 2
+    for seed, result in zip(seeds, got):
+        batch_rng = np.random.default_rng(seed)
+        pages = planner.prepare_batch(2, batch_rng)
+        ref = jax_synthesize(pages, 5, batch_rng, out_shape=OUT,
+                             enable_photometric=False, crop_config=CROP)
+        assert_same_result(ref, result)
+
+
+def test_keep_on_device_returns_tensors(planners):
+    pages = planners['text'].prepare_batch(1, np.random.default_rng(4))
+    out = synthesize_page_batch(pages, 5, np.random.default_rng(4),
+                                out_shape=OUT, crop_config=CROP,
+                                keep_on_device=True, device='cpu')
+    assert isinstance(out.images, torch.Tensor)
+    assert out.images.dtype == torch.uint8
+    assert out.label_stack.dtype == torch.float32
+    assert out.active_masks.dtype == torch.uint8
+    assert torch.isfinite(out.label_stack).all()
+    if out.num_crops:
+        assert isinstance(out.crop_images, torch.Tensor)
+        assert out.crop_images.shape[0] == out.num_crops
+
+
+@pytest.mark.parametrize('option', ['photometric', 'gaussians', 'region'])
+def test_unported_options_raise(planners, option):
+    pages = planners['text'].prepare_batch(1, np.random.default_rng(0))
+    kwargs = {
+        'photometric': {'enable_photometric': True},
+        'gaussians': {'emit_char_gaussians': True},
+        'region': {'region_config': object()},
+    }[option]
+    with pytest.raises(NotImplementedError):
+        synthesize_page_batch(pages, 5, np.random.default_rng(0),
+                              device='cpu', **kwargs)

@@ -1,0 +1,25 @@
+"""The host layers the port shares with vkit_tpu, in one place.
+
+Page prep (``SynthPlanner``), warp plans and the native C++ geometry
+library are numpy / C++ host code that both packages run unchanged; the
+port's device modules import them from vkit_tpu directly.  Scripts that
+drive the port (chip_smoke.py) take them from here.
+"""
+from vkit_tpu.mechanism.distortion.warp_plan import (  # noqa: F401
+    WarpPlan,
+    matrix_plan,
+    warp_active_mask,
+)
+from vkit_tpu.synth.prep import (  # noqa: F401
+    HostPage,
+    SynthPlanner,
+    SynthPlannerConfig,
+)
+
+
+def native_geometry_loaded() -> bool:
+    """Whether vkit_tpu's C++ geometry library built and loaded (the host
+    planners fall back to numpy without it)."""
+    from vkit_tpu.native import load_library
+
+    return load_library() is not None

@@ -1,0 +1,333 @@
+"""Hand-written Hopper kernels of the port, their wrappers and plain twins.
+
+Three CUDA kernels replace the Pallas kernels of
+vkit_tpu/ops/pallas_kernels.py that the page-synthesis path runs:
+
+  row_shift_window_slab  (csrc/row_shift.cu)        <- row_shift_window_slab
+  row_shift              (csrc/row_shift.cu)        <- row_shift
+  banded_line_resample   (csrc/banded_resample.cu)  <- banded_line_resample
+
+The sources build at first use with ``nvcc`` into one shared library with a
+plain C interface under ``ops/build/`` (named by a hash of the sources and
+flags, so an edit rebuilds) and load through ctypes.  Nothing builds or
+loads while this module is imported: CPU-only installs import it freely.
+
+Every wrapper checks device, dtype, shape, contiguity and the bounds the
+JAX wrapper asserts, then:
+  - a CPU tensor goes to the plain PyTorch version of the kernel below
+    (the CPU tests use it);
+  - a CUDA tensor launches the kernel on the current stream, or raises.
+    There is no fallback from a CUDA tensor to the plain version.
+``LAUNCHES`` counts kernel launches per wrapper (plain calls do not count).
+"""
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+_HERE = Path(__file__).resolve().parent
+_CSRC = _HERE / 'csrc'
+_BUILD = _HERE / 'build'
+_SOURCES = ('row_shift.cu', 'banded_resample.cu')
+_NVCC_FLAGS = (
+    '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+    '-shared', '-Xcompiler', '-fPIC',
+)
+
+# The TPU kernels' window: rows are rolled inside 2048 lanes.
+WINDOW = 2048
+# K2's roll window and its largest output (pallas_kernels._ROLL_WINDOW).
+ROLL_WINDOW = 1024
+# K3 places each source row at this lane of the window.
+ROW_OFFSET = 512
+
+LAUNCHES = {
+    'row_shift_window_slab': 0,
+    'row_shift': 0,
+    'banded_line_resample': 0,
+}
+
+_lib = None
+_lib_lock = threading.Lock()
+BUILD_SECONDS = None  # wall time of the last nvcc build in this process
+
+
+def reset_launch_counts():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    cuda_home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
+    candidate = Path(cuda_home) / 'bin' / 'nvcc'
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError('nvcc not found: the CUDA kernels cannot be built')
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256()
+    for name in _SOURCES:
+        digest.update((_CSRC / name).read_bytes())
+    digest.update(' '.join(_NVCC_FLAGS).encode())
+    return _BUILD / f'libvkit_kernels_{digest.hexdigest()[:16]}.so'
+
+
+def _build(target: Path):
+    global BUILD_SECONDS
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f'.{os.getpid()}.tmp')
+    cmd = [_nvcc(), *_NVCC_FLAGS, '-o', str(tmp),
+           *[str(_CSRC / name) for name in _SOURCES]]
+    begin = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f'nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}'
+        )
+    os.replace(tmp, target)
+    BUILD_SECONDS = time.perf_counter() - begin
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        target = library_path()
+        if not target.exists():
+            _build(target)
+        lib = ctypes.CDLL(str(target))
+        ptr, i32, i64, f32 = (
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+        )
+        lib.vk_row_shift_window_slab.argtypes = [
+            ptr, ptr, ptr, i64, i32, i32, i32, f32, ptr,
+        ]
+        lib.vk_row_shift_window_slab.restype = i32
+        lib.vk_row_shift.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
+        lib.vk_row_shift.restype = i32
+        lib.vk_banded_line_resample.argtypes = [
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, f32, ptr,
+        ]
+        lib.vk_banded_line_resample.restype = i32
+        _lib = lib
+        return lib
+
+
+def _check_launch(name: str, code: int):
+    if code != 0:
+        raise RuntimeError(
+            f'{name}: kernel launch failed with cudaError {code}'
+        )
+    LAUNCHES[name] += 1
+
+
+def _stream():
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _ptr(t: torch.Tensor):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _check_tensor(name, t, dtype, ndim, device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f'{name} must be a torch.Tensor, got {type(t)}')
+    if t.dtype != dtype:
+        raise TypeError(f'{name} must be {dtype}, got {t.dtype}')
+    if t.dim() != ndim:
+        raise ValueError(f'{name} must be {ndim}-D, got {tuple(t.shape)}')
+    if t.device != device:
+        raise ValueError(f'{name} is on {t.device}, expected {device}')
+    if device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'unsupported device {device}')
+    if not t.is_contiguous():
+        raise ValueError(f'{name} must be contiguous')
+
+
+# ---------------------------------------------------------------------------
+# K1: row_shift_window_slab.
+# ---------------------------------------------------------------------------
+
+
+def row_shift_window_slab_plain(x, starts, out_width: int,
+                                border_value: float = 0.0):
+    """Plain twin of K1: the TPU kernel's mod-2048 window, gathered."""
+    in_width = x.shape[-1]
+    j = torch.arange(out_width, device=x.device, dtype=torch.int64)
+    k = torch.remainder(starts.to(torch.int64)[..., None] + j, WINDOW)
+    inside = k < in_width                                  # (B, L, out_w)
+    idx = k.clamp(max=in_width - 1)[:, :, None, :].expand(
+        -1, -1, x.shape[2], -1
+    )
+    vals = torch.gather(x, 3, idx)
+    border = torch.full((), border_value, dtype=x.dtype, device=x.device)
+    return torch.where(inside[:, :, None, :], vals, border)
+
+
+def row_shift_window_slab(x, starts, out_width: int,
+                          border_value: float = 0.0):
+    """``out[b, l, c, j] = x[b, l, c, starts[b, l] + j]``; positions outside
+    ``[0, W)`` read ``border_value``.
+
+    ``x``: (B, L, C, W) float32; ``starts``: (B, L) int32.  Like the TPU
+    kernel, needs ``W + out_width <= 2048`` (the window is 2048 lanes and
+    indices wrap mod 2048; starts within +-(2048 - W - out_width) never
+    wrap into the row)."""
+    _check_tensor('x', x, torch.float32, 4, x.device)
+    _check_tensor('starts', starts, torch.int32, 2, x.device)
+    b, l, c, in_width = x.shape
+    if tuple(starts.shape) != (b, l):
+        raise ValueError(f'starts {tuple(starts.shape)} != {(b, l)}')
+    if out_width < 1 or in_width + out_width > WINDOW:
+        raise ValueError(
+            f'in_width {in_width} + out_width {out_width} exceeds {WINDOW}'
+        )
+    if x.device.type == 'cpu':
+        return row_shift_window_slab_plain(x, starts, out_width, border_value)
+    out = torch.empty((b, l, c, out_width), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = load_library()
+    code = lib.vk_row_shift_window_slab(
+        _ptr(x), _ptr(starts), _ptr(out), b * l, c, in_width, out_width,
+        float(border_value), _stream(),
+    )
+    _check_launch('row_shift_window_slab', code)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2: row_shift (caller-padded rows).
+# ---------------------------------------------------------------------------
+
+
+def row_shift_plain(x_padded, starts, out_width: int):
+    """Plain twin of K2 (indices clamped into the padded row)."""
+    m_padded = x_padded.shape[-1]
+    j = torch.arange(out_width, device=x_padded.device, dtype=torch.int64)
+    idx = (starts.to(torch.int64)[..., None] + j).clamp(0, m_padded - 1)
+    return torch.gather(x_padded, 2, idx)
+
+
+def row_shift(x_padded, starts, out_width: int):
+    """``out[b, l, j] = x_padded[b, l, starts[b, l] + j]``.
+
+    ``x_padded``: (B, L, Mpad) float32 with ``Mpad >= 1024``; ``starts``:
+    (B, L) int32.  As for the TPU kernel, ``out_width <= 896`` and the
+    caller keeps ``0 <= starts`` and ``starts + 1024 <= Mpad``."""
+    _check_tensor('x_padded', x_padded, torch.float32, 3, x_padded.device)
+    _check_tensor('starts', starts, torch.int32, 2, x_padded.device)
+    b, l, m_padded = x_padded.shape
+    if tuple(starts.shape) != (b, l):
+        raise ValueError(f'starts {tuple(starts.shape)} != {(b, l)}')
+    if not 1 <= out_width <= ROLL_WINDOW - 128:
+        raise ValueError(f'out_width {out_width} outside [1, 896]')
+    if m_padded < ROLL_WINDOW:
+        raise ValueError(f'padded width {m_padded} < {ROLL_WINDOW}')
+    if x_padded.device.type == 'cpu':
+        return row_shift_plain(x_padded, starts, out_width)
+    out = torch.empty((b, l, out_width), dtype=x_padded.dtype,
+                      device=x_padded.device)
+    if out.numel() == 0:
+        return out
+    lib = load_library()
+    code = lib.vk_row_shift(
+        _ptr(x_padded), _ptr(starts), _ptr(out), b * l, m_padded, out_width,
+        _stream(),
+    )
+    _check_launch('row_shift', code)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3: banded_line_resample.
+# ---------------------------------------------------------------------------
+
+
+def _window_taps(x, k, border_value):
+    """Values of the 2048-lane window (row at lane 512, border elsewhere,
+    lane index mod 2048) at source index ``k`` (N, L, JP) for every
+    channel -> (N, L, C, JP)."""
+    in_width = x.shape[-1]
+    col = torch.remainder(k + ROW_OFFSET, WINDOW) - ROW_OFFSET
+    inside = (col >= 0) & (col < in_width)
+    idx = col.clamp(0, in_width - 1)[:, :, None, :].expand(
+        -1, -1, x.shape[2], -1
+    )
+    vals = torch.gather(x, 3, idx)
+    border = torch.full((), border_value, dtype=x.dtype, device=x.device)
+    return torch.where(inside[:, :, None, :], vals, border)
+
+
+def banded_line_resample_plain(x, base, pos, taps: int,
+                               border_value: float = 0.0):
+    """Plain twin of K3: the two taps floor(u), floor(u) + 1 that carry
+    weight, each masked to [0, taps) and read through the window."""
+    n, l, c, in_width = x.shape
+    jp = pos.shape[-1]
+    j = torch.arange(jp, device=x.device)
+    lane = (j % 128).to(torch.float32)
+    b = base.repeat_interleave(8, dim=1)[:, :l]            # (N, L, JP/128)
+    b = b.repeat_interleave(128, dim=2)                    # (N, L, JP)
+    u = pos - (b.to(torch.float32) + lane)
+    t0f = torch.floor(u)
+    t0 = t0f.to(torch.int64)
+    w0 = torch.clamp(1.0 - torch.abs(u - t0f), min=0.0)
+    w1 = torch.clamp(1.0 - torch.abs(u - (t0f + 1.0)), min=0.0)
+    w0 = torch.where((t0 >= 0) & (t0 < taps), w0, 0.0)
+    w1 = torch.where((t0 + 1 >= 0) & (t0 + 1 < taps), w1, 0.0)
+    k0 = b.to(torch.int64) + (j % 128) + t0
+    v0 = _window_taps(x, k0, border_value)
+    v1 = _window_taps(x, k0 + 1, border_value)
+    return w0[:, :, None, :] * v0 + w1[:, :, None, :] * v1
+
+
+def banded_line_resample(x, base, pos, taps: int,
+                         border_value: float = 0.0):
+    """``out[n, l, c, j] = interp(x[n, l, c, :], at=pos[n, l, j])``.
+
+    ``x``: (N, L, C, W) float32 with ``W + 384 <= 2048``; ``base``:
+    (N, ceil(L/8), JP/128) int32, one integer base per 8-line group and
+    128-lane block; ``pos``: (N, L, JP) float32, JP a multiple of 128;
+    ``taps <= 128``.  Same contract as the TPU kernel (see
+    csrc/banded_resample.cu)."""
+    _check_tensor('x', x, torch.float32, 4, x.device)
+    _check_tensor('base', base, torch.int32, 3, x.device)
+    _check_tensor('pos', pos, torch.float32, 3, x.device)
+    n, l, c, in_width = x.shape
+    jp = pos.shape[-1]
+    if tuple(pos.shape) != (n, l, jp) or jp % 128:
+        raise ValueError(f'pos {tuple(pos.shape)} does not fit x {x.shape}')
+    groups = -(-l // 8)
+    if tuple(base.shape) != (n, groups, jp // 128):
+        raise ValueError(
+            f'base {tuple(base.shape)} != {(n, groups, jp // 128)}'
+        )
+    if not 1 <= taps <= 128:
+        raise ValueError(f'taps {taps} outside [1, 128]')
+    if in_width + 128 + 256 > WINDOW:
+        raise ValueError(f'in_width {in_width} too wide for the window')
+    if x.device.type == 'cpu':
+        return banded_line_resample_plain(x, base, pos, taps, border_value)
+    out = torch.empty((n, l, c, jp), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = load_library()
+    code = lib.vk_banded_line_resample(
+        _ptr(x), _ptr(base), _ptr(pos), _ptr(out), n, l, c, in_width, jp,
+        groups, taps, float(border_value), _stream(),
+    )
+    _check_launch('banded_line_resample', code)
+    return out
