@@ -10,17 +10,32 @@ Phases, one line each (plus detail lines):
   2. build: nvcc builds the CUDA kernels from vkit_tpu_torch/ops/csrc;
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      card, at the shapes the main path gives it (max abs difference, median
-     CUDA-event time of both);
+     CUDA-event time of both); K4 (row_shift_window), which no path calls,
+     at the shape of the main path's RGB rows, one plane per row;
   4. main path: full-content 640x640 pages through synthesize_stream
-     (batch 8, level 5, two 512x512 crops per page), the random geometric
-     distortion of 32 x 640x640 x 5 channels, and two-page spreads
-     (640 x 1400) split into deskewed single pages by batched_plan_warp.
-     Launch counters are zeroed just before and read just after; every
-     kernel must have launched.  Outputs must be finite with the expected
-     shapes, and a 320x320 batch on the card must agree with the same
-     batch through the plain versions on the CPU.
-Then one JSON line of per-kernel results, and last
-{"ok": true, "device": {...}}.  Any failure raises (exit code != 0).
+     (batch 8, level 5, two 512x512 crops per page, the photometric stage
+     on as by default), RandomDistortion at bench config 5's shape (32 x
+     640x640 uint8 + 2 label channels: the photometric stage, then the
+     geometric plans rescaled to 704x704 and one batched_plan_warp), the
+     random geometric distortion of 32 x 640x640 x 5 channels, and two-page
+     spreads (640 x 1400) split into deskewed single pages by
+     batched_plan_warp.  Launch counters are zeroed just before and read
+     just after; K1-K3 must have launched.  Outputs must be finite with the
+     expected shapes, and 320x320 batches on the card must agree with the
+     same batches on the CPU: synthesis with the photometric stage off, and
+     the photometric stage restricted to its deterministic ops.  Then,
+     outside the counted run: synthesize_page_batch's own stage spans
+     (the photometric stage's seconds per 8-page batch), and
+     RandomDistortion images/s over bench config 5's step, label
+     co-transform and content boxes included (8 warm-ups, 6 timed steps);
+  5. photometric catalog: each of the 25 catalog names once over 8 x
+     640x640 uint8 with policy-sampled level-5 configs (6 members, 2
+     samples passing through), and one round of the one-program catalog
+     with a different op per sample.  Deterministic ops are held to the
+     same call on the CPU; rng-consuming ops to their configs' moments.
+Then one JSON line of per-kernel results, the card's name and power limit,
+and last {"ok": true, "device": {...}}.  Any failure raises (exit code != 0).
+Parity with the CPU assumes TF32 off for matmuls and cuDNN, as set here.
 The script needs a CUDA card and the rest of the repository beside it.
 """
 import importlib.metadata
@@ -47,7 +62,14 @@ KERNEL_SOURCES = {
                   'vkit_tpu/ops/pallas_kernels.py:26'),
     'banded_line_resample': ('vkit_tpu_torch/ops/csrc/banded_resample.cu',
                              'vkit_tpu/ops/pallas_kernels.py:341'),
+    'row_shift_window': ('vkit_tpu_torch/ops/csrc/row_shift.cu',
+                         'vkit_tpu/ops/pallas_kernels.py:136'),
 }
+# The kernels the main path runs; K4 has no caller on any path.
+MAIN_PATH_KERNELS = ('row_shift_window_slab', 'row_shift',
+                     'banded_line_resample')
+# Photometric ops that round an HSV / HSL intermediate to uint8.
+HSV_ROUNDING = frozenset({'color_shift', 'brightness_shift'})
 
 
 def log(msg: str):
@@ -338,6 +360,23 @@ def kernel_phase(device):
         'plain_ms': per_taps[128]['plain_ms'],
     }
     del x
+
+    # K4 at the main path's RGB rows, one plane per row: 8 x 640 rows x 3.
+    b, l, w, ow = 8, 1920, 640, 512
+    x = torch.from_numpy(
+        gen.random((b, l, w), dtype=np.float32) * 255
+    ).to(device)
+    bound = K.WINDOW - w - ow
+    starts = torch.from_numpy(
+        gen.integers(-bound, bound + 1, (b, l)).astype(np.int32)
+    ).to(device)
+    results['row_shift_window'] = compare(
+        'row_shift_window',
+        lambda: K.row_shift_window(x, starts, ow, 255.0),
+        lambda: K.row_shift_window_plain(x, starts, ow, 255.0),
+        tol=0.0,
+    )
+    del x, starts
     torch.cuda.empty_cache()
     return results
 
@@ -392,14 +431,21 @@ def sync(device):
         torch.cuda.synchronize()
 
 
+def _label_planes(gen, shape):
+    """Two 0/1 label planes (a mask and a score map) per sample."""
+    return (gen.random(shape + (2,)) > 0.5).astype(np.float32)
+
+
 def main_path(device, planner, seed: int, side: int = 640, batch: int = 8,
               distort_batch: int = 32, spread_height: int = 640):
     """One run of the main path; returns its rates."""
     import torch
 
+    from vkit_tpu_torch.host import rescale_plan_to, sample_geometric_plans
     from vkit_tpu_torch.mechanism.batched import batched_plan_warp
     from vkit_tpu_torch.mechanism.batched_random import (
         batch_random_geometric_distort,
+        batch_random_photometric_distort,
     )
     from vkit_tpu_torch.synth import CropConfig, synthesize_stream
 
@@ -420,15 +466,36 @@ def main_path(device, planner, seed: int, side: int = 640, batch: int = 8,
     rates['synth_pages_per_s'] = pages / (time.perf_counter() - begin)
     rates['synth_crops'] = crops
 
+    # RandomDistortion, bench config 5's shape: photometric, then one warp
+    # of image + labels onto the 704 x 704 canvas (timed on its own in
+    # random_distortion_rate).
     gen = np.random.default_rng(seed + 1)
     shape = (distort_batch, side, side)
+    images = torch.from_numpy(
+        gen.integers(0, 256, shape + (3,), dtype=np.uint8)
+    ).to(device)
+    labels = torch.from_numpy(_label_planes(gen, shape)).to(device)
+    out_shape = (704, 704)
+    random_rng = np.random.default_rng(seed + 3)
+    photo = batch_random_photometric_distort(images, 5, random_rng)
+    check(photo.device.type == device.type and photo.dtype == torch.uint8,
+          f'photometric stage output is {photo.dtype} on {photo.device}')
+    plans = [rescale_plan_to(p, out_shape) for p in
+             sample_geometric_plans(distort_batch, (side, side), 5,
+                                    random_rng)]
+    stack = torch.cat([photo.to(torch.float32), labels], dim=-1)
+    warped = batched_plan_warp(plans, stack, mode='auto')[0]
+    check(tuple(warped.shape) == (distort_batch,) + out_shape + (5,),
+          f'RandomDistortion output {tuple(warped.shape)}')
+    check(bool(torch.isfinite(warped).all()),
+          'RandomDistortion output not finite')
+    del photo, stack, warped, images
+
     stack = torch.cat([
         torch.from_numpy(
             gen.integers(0, 256, shape + (3,), dtype=np.uint8)
         ).to(device).to(torch.float32),
-        torch.from_numpy(
-            (gen.random(shape + (2,)) > 0.5).astype(np.float32)
-        ).to(device),
+        labels,
     ], dim=-1)
     sync(device)
     begin = time.perf_counter()
@@ -443,7 +510,7 @@ def main_path(device, planner, seed: int, side: int = 640, batch: int = 8,
           and tuple(warped.shape[1:3]) == active.shape[1:], 'distort shape')
     check(bool(torch.isfinite(warped).all()), 'distort output not finite')
     check(len(boxes) == distort_batch, 'distort boxes')
-    del stack, warped
+    del stack, warped, labels
 
     spreads = torch.from_numpy(gen.integers(
         0, 256, (batch, spread_height, 1400, 3), dtype=np.uint8
@@ -459,17 +526,125 @@ def main_path(device, planner, seed: int, side: int = 640, batch: int = 8,
     return rates
 
 
+def _label_sample(side: int):
+    """64 box polygons and 64 points on an 8 x 8 grid of the page."""
+    cell = side // 8
+    polygons, points = [], []
+    for row in range(8):
+        for col in range(8):
+            up, left = row * cell + 4, col * cell + 4
+            polygons.append(np.asarray([
+                (left, up), (left + cell - 8, up),
+                (left + cell - 8, up + cell // 2), (left, up + cell // 2),
+            ], dtype=np.float64))
+            points.append((left, up))
+    return polygons, np.asarray(points, dtype=np.float64)
+
+
+def random_distortion_rate(device, seed: int, side: int = 640,
+                           batch: int = 32, warmups: int = 8,
+                           iters: int = 6):
+    """RandomDistortion images/s at bench config 5's step: the photometric
+    stage, geometric plans rescaled to the 704 x 704 canvas, one warp of
+    image + mask + score map, the polygon / point co-transform and the
+    content boxes; each step waits for the previous step's output, as
+    bench.py's loop does.  Returns (images/s, per-step seconds)."""
+    import torch
+
+    from vkit_tpu_torch.host import (
+        plan_content_box,
+        rescale_plan_to,
+        sample_geometric_plans,
+    )
+    from vkit_tpu_torch.mechanism.batched import batched_plan_warp
+    from vkit_tpu_torch.mechanism.batched_random import (
+        batch_random_photometric_distort,
+    )
+
+    gen = np.random.default_rng(seed)
+    images = torch.from_numpy(
+        gen.integers(0, 256, (batch, side, side, 3), dtype=np.uint8)
+    ).to(device)
+    labels = np.empty((batch, side, side, 2), dtype=np.float32)
+    labels[..., 0] = 1.0
+    labels[..., 1] = gen.random((batch, side, side), dtype=np.float32)
+    labels = torch.from_numpy(labels).to(device)
+    polygons, points = _label_sample(side)
+    all_xy = np.concatenate(polygons + [points], axis=0)
+    out_shape = (704, 704)
+    pending = [None]
+
+    def step():
+        photo = batch_random_photometric_distort(images, 5, gen)
+        plans = [rescale_plan_to(p, out_shape) for p in
+                 sample_geometric_plans(batch, (side, side), 5, gen)]
+        stack = torch.cat([photo.to(torch.float32), labels], dim=-1)
+        out = batched_plan_warp(plans, stack, mode='auto')[0]
+        for plan in plans:
+            plan.map_points(all_xy)
+            plan_content_box(plan)
+        if pending[0] is not None:
+            float(pending[0][:, ::64, ::64, 0].mean())
+        pending[0] = out
+
+    for _ in range(warmups):
+        step()
+    sync(device)
+    times = []
+    begin = time.perf_counter()
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        step()
+        times.append(time.perf_counter() - t0)
+    sync(device)
+    seconds = time.perf_counter() - begin
+    out = pending[0]
+    check(tuple(out.shape) == (batch,) + out_shape + (5,),
+          f'RandomDistortion output {tuple(out.shape)}')
+    check(bool(torch.isfinite(out).all()),
+          'RandomDistortion output not finite')
+    return iters * batch / seconds, times
+
+
+def stage_spans(device, planner, seed: int, side: int = 640,
+                batches: int = 3, batch: int = 8):
+    """Per-stage seconds of synthesize_page_batch (its own timer spans,
+    each closed by a device synchronize) over 8-page 640 x 640 batches,
+    level 5, two 512 x 512 crops per page, after one batch untimed.
+    Returns {stage: mean seconds per batch}."""
+    from vkit_tpu_torch.host import StepTimer
+    from vkit_tpu_torch.synth import CropConfig, synthesize_page_batch
+
+    rng = np.random.default_rng(seed)
+    crop_size = side * 4 // 5
+    crop = CropConfig(core_size=crop_size, num_per_page=2)
+    page_sets = [planner.prepare_batch(batch, rng)
+                 for _ in range(batches + 1)]
+    timer = StepTimer()
+    for idx, pages in enumerate(page_sets):
+        result = synthesize_page_batch(
+            pages, 5, rng, crop_config=crop, keep_on_device=True,
+            device=device, timer=timer if idx else None,
+        )
+        check_synth(result, batch, side, crop_size)
+    check(timer.counts['photometric'] == batches,
+          'the photometric span did not run')
+    return {name: timer.totals[name] / batches for name in timer.totals}
+
+
 def small_batch_agreement(device, planner):
-    """A 320x320 batch through the kernels on the card and through the
-    plain versions on the CPU: same masks, images within 1 LSB and labels
-    within 1e-2 inside the active masks."""
+    """A 320x320 batch with the photometric stage off, through the kernels
+    on the card and through the plain versions on the CPU: same masks,
+    images within 1 LSB and labels within 1e-2 inside the active masks."""
     from vkit_tpu_torch.synth import CropConfig, synthesize_page_batch
 
     pages = planner.prepare_batch(2, np.random.default_rng(21))
     crop = CropConfig(core_size=192, num_per_page=2)
     card = synthesize_page_batch(pages, 5, np.random.default_rng(22),
+                                 enable_photometric=False,
                                  crop_config=crop, device=device)
     host = synthesize_page_batch(pages, 5, np.random.default_rng(22),
+                                 enable_photometric=False,
                                  crop_config=crop, device='cpu')
     check(np.array_equal(card.active_masks, host.active_masks),
           'active masks differ between card and CPU')
@@ -482,6 +657,238 @@ def small_batch_agreement(device, planner):
     check(np.array_equal(card.crop_windows, host.crop_windows),
           'crop windows differ between card and CPU')
     return img_err, lab_err
+
+
+def deterministic_stage():
+    """The photometric stage config without its rng-consuming ops."""
+    import attr
+
+    from vkit_tpu_torch.host import random_distortion_factory
+    from vkit_tpu_torch.mechanism.batched import RNG_CONSUMING
+
+    stage = random_distortion_factory.create_photometric_stage_config()
+    keep = [i for i, p in enumerate(stage.distortion_policies)
+            if p.name not in RNG_CONSUMING]
+    return attr.evolve(
+        stage,
+        distortion_policies=[stage.distortion_policies[i] for i in keep],
+        distortion_policy_weights=[stage.distortion_policy_weights[i]
+                                   for i in keep],
+    )
+
+
+def check_images_close(names, got, want, what):
+    """uint8 ``got`` against ``want`` at the tolerance of the ops in
+    ``names``; returns the max abs difference."""
+    diff = np.abs(got.astype(int) - want.astype(int))
+    err = int(diff.max()) if diff.size else 0
+    if set(names) & HSV_ROUNDING:
+        # One HSV / HSL rounding boundary moves a pixel by up to 8 LSB; a
+        # later op of the same draw (posterization) can widen the step.
+        limit = 8 if len(names) == 1 else 255
+        check(err <= limit and diff.mean() < 0.5
+              and (len(names) == 1 or (diff > 1).mean() < 1e-3),
+              f'{what}: {names} differ by {err} LSB (mean {diff.mean()})')
+    else:
+        check(err <= 1, f'{what}: {names} differ by {err} LSB')
+    return err
+
+
+def photometric_agreement(device, planner):
+    """The photometric stage restricted to its deterministic ops, on the
+    backgrounds of 8 320x320 pages, on the card and on the CPU."""
+    import torch
+
+    from vkit_tpu_torch.mechanism.batched_random import (
+        batch_random_photometric_distort,
+        sample_photometric_sequences,
+    )
+
+    stage = deterministic_stage()
+    pages = planner.prepare_batch(8, np.random.default_rng(23))
+    images = torch.from_numpy(np.stack([p.background for p in pages]))
+    _, draws = sample_photometric_sequences(
+        8, images.shape[1:3], 5, np.random.default_rng(24), stage)
+    card = batch_random_photometric_distort(
+        images.to(device), 5, np.random.default_rng(24), stage_config=stage)
+    host = batch_random_photometric_distort(
+        images, 5, np.random.default_rng(24), stage_config=stage)
+    check(card.device.type == device.type,
+          f'photometric output is on {card.device}')
+    card, host = card.cpu().numpy(), host.numpy()
+    check(any(draws), 'no sample drew a photometric op')
+    return max(check_images_close([n for n, _ in seq], c, h, 'card vs CPU')
+               for c, h, seq in zip(card, host, draws))
+
+
+def _catalog_configs(policy, static_signature, n, shape, rng):
+    """Policy-sampled level-5 configs that can share one batched apply."""
+    configs = [policy.sample_config(5, shape, rng) for _ in range(n)]
+    sig0 = static_signature(policy.name, configs[0])
+    configs = [c if static_signature(policy.name, c) == sig0 else configs[0]
+               for c in configs]
+    if policy.name in ('pixelation', 'zoom_in_blur'):
+        configs = [configs[0]] * n
+    return configs
+
+
+def check_rng_op(name, out, images, configs, blurred=None):
+    """Moments of an rng-consuming op on each member against its config."""
+    def mean_ok(values, spread):
+        # Within five standard errors of zero.
+        return abs(values.mean()) <= 5 * spread / np.sqrt(values.size)
+
+    for o, img, cfg in zip(out.astype(np.float64), images.astype(np.float64),
+                           configs):
+        delta = o - img
+        if name == 'gaussion_noise':
+            sigma = float(cfg.std)
+            inside = (img >= 4 * sigma) & (img <= 255 - 4 * sigma)
+            expect = np.sqrt(sigma * sigma + 1 / 12)
+            check(mean_ok(delta[inside], expect)
+                  and abs(delta[inside].std() - expect) <= 0.05 * expect,
+                  f'{name}: moments {delta[inside].mean()}, '
+                  f'{delta[inside].std()} for std {sigma}')
+        elif name == 'speckle_noise':
+            sigma = float(cfg.std)
+            inside = (img >= 64) & (img * (1 + 4 * sigma) <= 255)
+            rel = delta[inside] / img[inside]
+            check(inside.sum() > 1000 and mean_ok(rel, sigma + 0.01)
+                  and abs(rel.std() - sigma) <= 0.1 * sigma + 0.01,
+                  f'{name}: relative moments {rel.mean()}, {rel.std()} '
+                  f'for std {sigma}')
+        elif name == 'poisson_noise':
+            inside = (img >= 20) & (img <= 200)
+            check(mean_ok(delta[inside], np.sqrt(img[inside].mean()))
+                  and abs(delta[inside].var() / img[inside].mean() - 1)
+                  <= 0.05,
+                  f'{name}: mean {delta[inside].mean()}, var '
+                  f'{delta[inside].var()} for mean lambda '
+                  f'{img[inside].mean()}')
+        elif name == 'impulse_noise':
+            for value, base, prob in ((255, img < 255, cfg.prob_salt),
+                                      (0, img > 0, cfg.prob_pepper)):
+                frac = np.mean(o[base] == value)
+                tol = 5 * np.sqrt(max(prob, 1e-4) / base.sum()) + 1e-3
+                check(abs(frac - prob) <= tol,
+                      f'{name}: fraction {frac} of {value} for p {prob}')
+        elif name == 'channel_permutation':
+            picks = sorted(
+                next((i for i in range(3)
+                      if np.array_equal(o[..., c], img[..., i])), -1)
+                for c in range(3)
+            )
+            check(picks == [0, 1, 2], f'{name}: channels {picks}')
+        elif name == 'fog':
+            fog = np.broadcast_to(np.asarray(cfg.fog_rgb, np.float64),
+                                  img.shape)
+            inside = ((o >= np.minimum(img, fog) - 1)
+                      & (o <= np.maximum(img, fog) + 1))
+            far = np.abs(fog - img) > 32
+            ratio = (o - img)[far] / (fog - img)[far]
+            check(inside.all() and ratio.std() > 0.01,
+                  f'{name}: not a blend toward the fog color')
+    if name == 'glass_blur':
+        # Swaps only permute pixels of the blurred image.
+        for o, b in zip(out, blurred):
+            check(np.array_equal(np.sort(o, axis=None), np.sort(b, axis=None)),
+                  f'{name}: output is not a permutation of the blur')
+
+
+def catalog_phase(device, side: int = 640):
+    """Every catalog name once on the card (6 of 8 samples members), then
+    one mixed round of the one-program catalog.  Returns per-name seconds
+    and max abs errors against the CPU (None for rng-consuming names)."""
+    import torch
+
+    from vkit_tpu_torch.host import (
+        random_distortion_factory,
+        static_signature,
+    )
+    from vkit_tpu_torch.mechanism import batched as B
+    from vkit_tpu_torch.mechanism.photometric_program import (
+        MEGA_NAMES,
+        apply_mega_round,
+    )
+    from vkit_tpu_torch.ops.blur import filter2d
+
+    stage = random_distortion_factory.create_photometric_stage_config()
+    policies = {p.name: p for p in stage.distortion_policies}
+    check(set(policies) == set(B._CATALOG),
+          f'catalog names {sorted(set(policies) ^ set(B._CATALOG))} differ')
+    n, members = 8, 6
+    gen = np.random.default_rng(5)
+    # Smooth page-like content in [40, 215], so noise moments are not
+    # clipped at 0 / 255.
+    coarse = gen.integers(40, 216, (n, 10, 10, 3)).astype(np.float32)
+    up = np.kron(coarse, np.ones((1, side // 10, side // 10, 1), np.float32))
+    images_np = np.clip(up + gen.normal(0, 6, up.shape), 40, 215).astype(
+        np.uint8)
+    images = torch.from_numpy(images_np).to(device)
+    rng = np.random.default_rng(6)
+    results = {}
+    for name in sorted(policies):
+        configs = _catalog_configs(policies[name], static_signature, n,
+                                   (side, side), rng)
+        group = list(enumerate(configs[:members]))
+        sync(device)
+        begin = time.perf_counter()
+        out = B.batch_distort_members(name, group, images, 17)
+        sync(device)
+        seconds = time.perf_counter() - begin
+        check(out.device.type == device.type and out.dtype == torch.uint8
+              and tuple(out.shape) == (n, side, side, 3),
+              f'{name}: output {out.device} {out.dtype} {tuple(out.shape)}')
+        check(torch.equal(out[members:], images[members:]),
+              f'{name}: a non-member changed')
+        out_np = out.cpu().numpy()
+        err = None
+        if name in B.RNG_CONSUMING:
+            blurred = None
+            if name == 'glass_blur':
+                kernels = B._prep_kernels('gaussian_blur', configs[:members],
+                                          (members, side, side, 3))
+                blurred = filter2d(images[:members], kernels).cpu().numpy()
+            check_rng_op(name, out_np[:members], images_np[:members],
+                         configs[:members], blurred)
+        else:
+            host = B.batch_distort_members(name, group,
+                                           torch.from_numpy(images_np), 17)
+            err = check_images_close([name], out_np, host.numpy(),
+                                     'card vs CPU')
+        results[name] = {'seconds': seconds, 'max_abs_err': err}
+
+    # One round of the one-program catalog: a different op per sample,
+    # the last sample passing through.
+    names = ['mean_shift', 'brightness_shift', 'complement', 'posterization',
+             'gaussian_blur', 'line_streak', 'gaussion_noise']
+    check(set(names) <= set(MEGA_NAMES), 'mega names drifted')
+    round_members = {
+        name: [(i, policies[name].sample_config(5, (side, side), rng))]
+        for i, name in enumerate(names)
+    }
+    sync(device)
+    begin = time.perf_counter()
+    card = apply_mega_round(images, round_members, 29)
+    sync(device)
+    mega_seconds = time.perf_counter() - begin
+    check(card.device.type == device.type and card.dtype == torch.uint8,
+          f'mega round output {card.dtype} on {card.device}')
+    host = apply_mega_round(torch.from_numpy(images_np), round_members,
+                            29).numpy()
+    card = card.cpu().numpy()
+    check(np.array_equal(card[n - 1], images_np[n - 1]),
+          'mega round changed its passthrough sample')
+    mega_err = 0
+    for i, name in enumerate(names):
+        if name in B.RNG_CONSUMING:
+            check_rng_op(name, card[i:i + 1], images_np[i:i + 1],
+                         [round_members[name][0][1]])
+            continue
+        mega_err = max(mega_err, check_images_close(
+            [name], card[i], host[i], 'mega round card vs CPU'))
+    results['mega_round'] = {'seconds': mega_seconds, 'max_abs_err': mega_err}
+    return results
 
 
 def main() -> int:
@@ -522,7 +929,10 @@ def main() -> int:
         f'load {time.perf_counter() - begin:.3f} s')
 
     # 3. Kernels against their plain versions.
+    K.reset_launch_counts()
     kernels = kernel_phase(device)
+    k4_launches = K.LAUNCHES['row_shift_window']
+    check(k4_launches >= 1, 'row_shift_window never launched')
     for name, res in kernels.items():
         log(f'[3 kernel] {name}: max_abs_err {res["max_abs_err"]} '
             f'bit_exact {res["bit_exact"]} ms {res["ms"]:.4f} '
@@ -537,18 +947,42 @@ def main() -> int:
         K.reset_launch_counts()
         rates = main_path(device, planner, seed)
         launches = dict(K.LAUNCHES)
-        if all(launches.values()):
+        if all(launches[name] for name in MAIN_PATH_KERNELS):
             break
         log(f'    seed {seed}: launches {launches}; drawing another seed')
-    check(all(launches.values()), f'a kernel never launched: {launches}')
+    check(all(launches[name] for name in MAIN_PATH_KERNELS),
+          f'a kernel never launched: {launches}')
+    launches['row_shift_window'] = k4_launches
     small = make_planner(assets, 320)
     img_err, lab_err = small_batch_agreement(device, small)
-    log(f'[4 main path] synthesize_stream {rates["synth_pages_per_s"]:.3f} '
-        f'pages/s ({rates["synth_crops"]} crops), '
-        f'batch_random_geometric_distort '
-        f'{rates["distort_images_per_s"]:.3f} images/s, spread split '
-        f'{rates["spread_pages_per_s"]:.3f} pages/s | launches {launches} '
-        f'| card vs CPU: {img_err} LSB, labels {lab_err} | {card}')
+    photo_err = photometric_agreement(device, small)
+    log(f'[4 main path] synthesize_stream {rates["synth_pages_per_s"]} '
+        f'pages/s (3 batches of 8, {rates["synth_crops"]} crops, '
+        f'photometric stage on), batch_random_geometric_distort '
+        f'{rates["distort_images_per_s"]} images/s, spread split '
+        f'{rates["spread_pages_per_s"]} pages/s | launches {launches} '
+        f'| card vs CPU: {img_err} LSB, labels {lab_err}, deterministic '
+        f'photometric stage {photo_err} LSB | {card}')
+    spans = stage_spans(device, planner, seed=200)
+    log('[4 stages] synthesize_page_batch s per 8-page batch (timer spans, '
+        'mean of 3): ' + ', '.join(f'{name} {sec}'
+                                   for name, sec in spans.items())
+        + f' | sum {sum(spans.values())} | {card}')
+    log(f'[4 photometric] {spans["photometric"]} s per 8-page batch '
+        f'(synth-640, level 5), {spans["photometric"] / sum(spans.values())}'
+        f' of the spans\' sum | {card}')
+    random_rate, step_times = random_distortion_rate(device, seed=300)
+    log(f'[4 RandomDistortion] {random_rate} images/s over 6 timed steps of '
+        f'32 x 640x640 after 8 warm-ups; step seconds {step_times} | {card}')
+
+    # 5. The photometric catalog on the card.
+    catalog = catalog_phase(device)
+    log('[5 catalog] ' + ', '.join(
+        f'{name} {res["seconds"]:.4f} s'
+        + ('' if res['max_abs_err'] is None
+           else f' (err {res["max_abs_err"]})')
+        for name, res in catalog.items()
+    ) + f' | {card}')
 
     print(json.dumps({'kernels': [
         {

@@ -36,6 +36,16 @@ def _slab_case(seed, b=2, l=24, c=3, w=200, ow=160):
     return x, starts, ow
 
 
+def _window_case(seed, b=2, l=40, w=300, ow=256):
+    """K4's rows: starts across the whole window, some inside the row."""
+    rng = np.random.default_rng(seed)
+    x = (rng.random((b, l, w), dtype=np.float32) * 255).astype(np.float32)
+    bound = K.WINDOW - w - ow
+    starts = rng.integers(-bound, bound + 1, (b, l)).astype(np.int32)
+    starts[0, :10] = rng.integers(-40, w, 10)
+    return x, starts, ow
+
+
 def _row_shift_case(seed, b=2, l=20, m=1536, ow=400):
     rng = np.random.default_rng(seed)
     x = rng.random((b, l, m), dtype=np.float32)
@@ -63,6 +73,19 @@ def test_row_shift_window_slab_bit_exact(seed, border):
     got = K.row_shift_window_slab(
         torch.from_numpy(x), torch.from_numpy(starts), ow, border
     ).numpy()
+    assert np.array_equal(ref, got)
+
+
+@pytest.mark.parametrize('seed', [0, 1])
+@pytest.mark.parametrize('border', [0.0, 255.0])
+def test_row_shift_window_bit_exact(seed, border):
+    x, starts, ow = _window_case(seed)
+    ref = np.asarray(PK.row_shift_window(
+        jnp.asarray(x), jnp.asarray(starts), ow, border_value=border,
+        interpret=True,
+    ))
+    got = K.row_shift_window(torch.from_numpy(x), torch.from_numpy(starts),
+                             ow, border).numpy()
     assert np.array_equal(ref, got)
 
 
@@ -146,6 +169,16 @@ def test_cuda_device_raises_without_cuda():
     with pytest.raises(RuntimeError):
         batched_plan_warp(plans, np.zeros((1, 8, 8, 3), np.uint8),
                           device='cuda')
+
+
+def test_cuda_row_shift_window_matches_plain(cuda_device):
+    x, starts, ow = _window_case(5)
+    xt = torch.from_numpy(x).to(cuda_device)
+    st = torch.from_numpy(starts).to(cuda_device)
+    before = K.LAUNCHES['row_shift_window']
+    got = K.row_shift_window(xt, st, ow, 255.0)
+    assert K.LAUNCHES['row_shift_window'] == before + 1
+    assert torch.equal(got, K.row_shift_window_plain(xt, st, ow, 255.0))
 
 
 def test_cuda_kernels_match_plain(cuda_device):

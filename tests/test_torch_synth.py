@@ -1,6 +1,9 @@
 """The port's page-synthesis slice (vkit_tpu_torch/synth/device.py) against
-vkit_tpu's synthesize_page_batch with the photometric stage off: same
-pages, same rng, so the same plans and crop windows, draw for draw."""
+vkit_tpu's synthesize_page_batch, with the photometric stage off and on
+(the default of both): same pages, same rng, so the same photometric draws,
+plans and crop windows, draw for draw."""
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -8,6 +11,10 @@ import torch
 from tests.pipeline.fixtures import build_assets
 from vkit_tpu.synth import CropConfig, SynthPlanner, SynthPlannerConfig
 from vkit_tpu.synth import synthesize_page_batch as jax_synthesize
+from vkit_tpu_torch.mechanism.batched import RNG_CONSUMING
+from vkit_tpu_torch.mechanism.batched_random import (
+    sample_photometric_sequences,
+)
 from vkit_tpu_torch.synth import synthesize_page_batch, synthesize_stream
 
 torch.set_num_threads(1)
@@ -55,7 +62,24 @@ def _boxes(boxes):
     return [(b.up, b.down, b.left, b.right) for b in boxes]
 
 
-def assert_same_result(ref, got):
+# Ops that round an HSV / HSL intermediate to uint8: a pixel on a rounding
+# boundary may land up to 8 LSB apart (tests/test_torch_photometric.py),
+# and later ops of the draw (posterization, equalization) can widen that
+# step.  Such samples are held to a mean < 0.5 LSB with under 0.1% of
+# pixels more than 1 LSB apart.
+HSV_ROUNDING = frozenset({'color_shift', 'brightness_shift'})
+
+
+def photometric_draws(rng, n, shape, level=5):
+    """Each sample's photometric draws, replayed on a copy of ``rng``."""
+    return sample_photometric_sequences(n, shape, level, copy.deepcopy(rng))[1]
+
+
+def assert_same_result(ref, got, draws=None):
+    """Same analytic results; images within 1 LSB inside the active masks.
+    With photometric ``draws``, images are compared per sample where the
+    sample drew no rng-consuming op (at the HSV rounding bound above where
+    it drew color_shift / brightness_shift)."""
     assert np.array_equal(ref.active_masks, got.active_masks)
     assert _boxes(ref.content_boxes) == _boxes(got.content_boxes)
     for ref_pages, got_pages in ((ref.word_polygons, got.word_polygons),
@@ -66,20 +90,36 @@ def assert_same_result(ref, got):
                 assert np.array_equal(a.to_np_array(), b.to_np_array())
     active = ref.active_masks > 0
     assert active.any()
-    img = np.abs(ref.images.astype(int) - got.images.astype(int))
-    assert img[active].max() <= 1
     lab = np.abs(ref.label_stack - got.label_stack)
     assert lab[active].max() <= 1e-2
+    img = np.abs(ref.images.astype(int) - got.images.astype(int))
+    if draws is None:
+        draws = [[] for _ in range(len(img))]
+    compared = 0
+    for sample, seq in enumerate(draws):
+        names = {name for name, _ in seq}
+        if names & RNG_CONSUMING:
+            continue
+        diff = img[sample][active[sample]]
+        if names & HSV_ROUNDING:
+            assert diff.mean() < 0.5 and (diff > 1).mean() < 1e-3
+        else:
+            assert diff.max() <= 1, (sample, names, diff.max())
+        compared += 1
+    assert compared > 0
     assert ref.num_crops == got.num_crops
     if ref.num_crops:
         count = ref.num_crops
         assert np.array_equal(ref.crop_windows, got.crop_windows)
         assert np.array_equal(ref.crop_page_ids, got.crop_page_ids)
         assert got.crop_images.shape[0] == count
-        crop = np.abs(ref.crop_images[:count].astype(int)
-                      - got.crop_images.astype(int))
-        assert crop.max() <= 1
         assert np.array_equal(ref.crop_active[:count], got.crop_active)
+        for k, sample in enumerate(ref.crop_page_ids):
+            names = {name for name, _ in draws[sample]}
+            if not names & (RNG_CONSUMING | HSV_ROUNDING):
+                crop = np.abs(ref.crop_images[k].astype(int)
+                              - got.crop_images[k].astype(int))
+                assert crop.max() <= 1
 
 
 @pytest.mark.parametrize('content,seed', [('text', 5), ('full', 6)])
@@ -91,8 +131,8 @@ def test_page_batch_matches_jax(planners, content, seed):
                          out_shape=OUT, enable_photometric=False,
                          crop_config=CROP)
     got = synthesize_page_batch(pages, 5, np.random.default_rng(seed + 100),
-                                out_shape=OUT, crop_config=CROP,
-                                device='cpu')
+                                out_shape=OUT, enable_photometric=False,
+                                crop_config=CROP, device='cpu')
     assert isinstance(got.images, np.ndarray)
     assert got.images.shape == (2,) + OUT + (3,)
     assert_same_result(ref, got)
@@ -104,13 +144,29 @@ def test_no_geometric_matches_jax(planners):
     ref = jax_synthesize(pages, 5, np.random.default_rng(1),
                          enable_photometric=False, enable_geometric=False)
     got = synthesize_page_batch(pages, 5, np.random.default_rng(1),
+                                enable_photometric=False,
                                 enable_geometric=False, device='cpu')
     assert_same_result(ref, got)
 
 
+@pytest.mark.parametrize('seed', [12, 13])
+def test_photometric_page_batch_matches_jax(planners, seed):
+    """The reference's default: the photometric stage on."""
+    pages = planners['full'].prepare_batch(4, np.random.default_rng(seed))
+    rng = np.random.default_rng(seed + 100)
+    draws = photometric_draws(rng, 4, pages[0].background.shape[:2])
+    assert any(draws)
+    ref = jax_synthesize(pages, 5, copy.deepcopy(rng), out_shape=OUT,
+                         crop_config=CROP)
+    got = synthesize_page_batch(pages, 5, rng, out_shape=OUT,
+                                crop_config=CROP, device='cpu')
+    assert_same_result(ref, got, draws)
+
+
 def test_stream_matches_jax(planners):
-    """The stream's per-batch child rngs drive prep and synthesis; the
-    reference run replays them through vkit_tpu batch by batch."""
+    """The stream's per-batch child rngs drive prep and synthesis (the
+    photometric stage on, as in the reference's stream); the reference run
+    replays them through vkit_tpu batch by batch."""
     planner = planners['text']
     got = list(synthesize_stream(planner, 2, 5, np.random.default_rng(9),
                                  num_batches=2, out_shape=OUT,
@@ -121,9 +177,10 @@ def test_stream_matches_jax(planners):
     for seed, result in zip(seeds, got):
         batch_rng = np.random.default_rng(seed)
         pages = planner.prepare_batch(2, batch_rng)
+        draws = photometric_draws(batch_rng, 2, pages[0].background.shape[:2])
         ref = jax_synthesize(pages, 5, batch_rng, out_shape=OUT,
-                             enable_photometric=False, crop_config=CROP)
-        assert_same_result(ref, result)
+                             crop_config=CROP)
+        assert_same_result(ref, result, draws)
 
 
 def test_keep_on_device_returns_tensors(planners):
@@ -141,11 +198,32 @@ def test_keep_on_device_returns_tensors(planners):
         assert out.crop_images.shape[0] == out.num_crops
 
 
-@pytest.mark.parametrize('option', ['photometric', 'gaussians', 'region'])
+def test_stage_timer_spans_leave_result_unchanged(planners):
+    """A timer records one span per stage and changes nothing."""
+    from vkit_tpu.utility.profiling import StepTimer
+
+    pages = planners['full'].prepare_batch(2, np.random.default_rng(14))
+    plain = synthesize_page_batch(pages, 5, np.random.default_rng(15),
+                                  out_shape=OUT, crop_config=CROP,
+                                  device='cpu')
+    timer = StepTimer()
+    timed = synthesize_page_batch(pages, 5, np.random.default_rng(15),
+                                  out_shape=OUT, crop_config=CROP,
+                                  device='cpu', timer=timer)
+    assert set(timer.counts) == {
+        'assemble', 'photometric', 'plan-host', 'warp', 'active-host',
+        'finish', 'polygons-host', 'crops', 'fetch',
+    }
+    assert all(count == 1 for count in timer.counts.values())
+    np.testing.assert_array_equal(timed.images, plain.images)
+    np.testing.assert_array_equal(timed.label_stack, plain.label_stack)
+    np.testing.assert_array_equal(timed.crop_windows, plain.crop_windows)
+
+
+@pytest.mark.parametrize('option', ['gaussians', 'region'])
 def test_unported_options_raise(planners, option):
     pages = planners['text'].prepare_batch(1, np.random.default_rng(0))
     kwargs = {
-        'photometric': {'enable_photometric': True},
         'gaussians': {'emit_char_gaussians': True},
         'region': {'region_config': object()},
     }[option]

@@ -1,25 +1,48 @@
-"""Batched geometric warp: every sample by its own WarpPlan, on the device.
+"""Batched distortions on the device: the photometric catalog and the
+geometric warp of every sample by its own WarpPlan.
 
-Port of the geometric half of vkit_tpu/mechanism/batched.py: the device
-helpers ``_coarse_gather_remap``, ``_coarse_gather_warp``,
-``_upsample_node_maps``, ``_scatter_samples``, ``_banded_group_scatter``,
-``_merge_subbatches``, ``_affine_sub_warp``, ``_mean_pool2`` and
-``_coarse_mxu_warp``, and ``batched_plan_warp`` in modes ``auto`` and
-``gather``.  The host side (``_build_coarse_nodes``, ``_bucket_pad``,
-``LazyCoverages``, the affine / banded / gather routing, the plans) is the
-reference's own code, imported from vkit_tpu, so both packages send every
-sample down the same route.  Scatters write in place into the output batch
-where the reference donated its buffer.
+Port of vkit_tpu/mechanism/batched.py.
+
+The photometric catalog (``batched_mean_shift`` ... ``batched_ellipse_streak``,
+``_finish``) and its per-name dispatch (``batch_distort_images``,
+``batch_distort_members``, ``batch_distort_grouped``): the host preps that
+turn configs into parameter arrays are the reference's own (its
+``_COMPILED_CATALOG``), so both packages derive the same parameters from
+the same configs.  The rng-consuming ops (the four noises,
+``channel_permutation``, ``fog`` and the rolls branch of ``glass_blur``)
+draw from a ``torch.Generator`` on the images' device and match the
+reference in distribution only.
+
+The geometric half: the device helpers ``_coarse_gather_remap``,
+``_coarse_gather_warp``, ``_upsample_node_maps``, ``_scatter_samples``,
+``_banded_group_scatter``, ``_merge_subbatches``, ``_affine_sub_warp``,
+``_mean_pool2`` and ``_coarse_mxu_warp``, and ``batched_plan_warp`` in modes
+``auto`` and ``gather``.  The host side (``_build_coarse_nodes``,
+``_bucket_pad``, ``LazyCoverages``, the affine / banded / gather routing, the
+plans) is the reference's own code, imported from vkit_tpu, so both packages
+send every sample down the same route.  Scatters write in place into the
+output batch where the reference donated its buffer.
 """
+from collections import defaultdict
+from types import SimpleNamespace
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from vkit_tpu.mechanism.batched import _COMPILED_CATALOG as _REFERENCE_CATALOG
 from vkit_tpu.mechanism.batched import (
     LazyCoverages,
     _bucket_pad,
     _build_coarse_nodes,
+)
+from vkit_tpu.mechanism.batched_random import (
+    _PER_SAMPLE_ONLY,
+    _static_signature,
+)
+from vkit_tpu.mechanism.distortion.photometric.base import OutOfBoundBehavior
+from vkit_tpu.mechanism.distortion.photometric.blur import (
+    build_glass_blur_permutation,
 )
 from vkit_tpu.mechanism.distortion.warp_plan import plan_content_box
 from vkit_tpu.ops.warp_banded import (
@@ -31,6 +54,18 @@ from vkit_tpu.ops.warp_banded import (
 from vkit_tpu.ops.warp_mxu import plan_affine_warp, quadrant_reduce_mats
 
 from .. import convert
+from ..ops import blur as blur_ops
+from ..ops import color as color_ops
+from ..ops import noise as noise_ops
+from ..ops.blend import blend
+from ..ops.common import scalar
+from ..ops.effect import (
+    _CHROMA_QTABLE,
+    _LUMA_QTABLE,
+    _quality_scaled_table,
+    diamond_square_mask,
+)
+from ..ops.jpeg_exact import jpeg_roundtrip_exact
 from ..ops.warp import remap_f32, to_image_dtype
 from ..ops.warp_banded import apply_banded_warp, banded_warp_body
 from ..ops.warp_mxu import apply_affine_warp, apply_affine_warp_quad
@@ -262,7 +297,7 @@ def batched_plan_warp(
     if mode == 'dense':
         raise NotImplementedError(
             "batched_plan_warp(mode='dense') is not ported yet: the legacy "
-            'dense two-pass is item 11 of ROADMAP.md'
+            'dense two-pass is queued in ROADMAP.md (1b)'
         )
     if mode not in ('auto', 'gather'):
         raise ValueError(f'unknown mode {mode!r}')
@@ -410,3 +445,730 @@ def batched_plan_warp(
     if return_maps:
         return warped, shapes, coverages, dev_maps
     return warped, shapes, coverages
+
+
+# ---------------------------------------------------------------------------
+# The photometric catalog: batched twins of the per-element distortions on
+# (N, H, W, 3) uint8 batches.
+# ---------------------------------------------------------------------------
+
+
+def _per_sample(values, like, dtype=torch.float32):
+    """(N,) values -> (N, 1, 1, 1) tensor on ``like``'s device."""
+    return convert.to_tensor(values, like.device, dtype).reshape(-1, 1, 1, 1)
+
+
+def _finish(x, oob: OutOfBoundBehavior = OutOfBoundBehavior.CLIP):
+    x = torch.round(x)
+    if oob == OutOfBoundBehavior.CYCLE:
+        return torch.remainder(x, 256.0).to(torch.uint8)
+    return torch.clamp(x, 0, 255).to(torch.uint8)
+
+
+def _apply_channels(images, new_channels, channels):
+    if channels is None:
+        return new_channels
+    out = images.clone()
+    out[..., list(channels)] = new_channels
+    return out
+
+
+def _select_channels(images, channels):
+    if channels is None:
+        return images
+    return images[..., list(channels)]
+
+
+def _generator(device, seed: int, stream: int = 0) -> torch.Generator:
+    """A generator on ``device`` for one (seed, stream) pair.  The
+    rng-consuming ops draw on the image's own device, never on the host."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(((int(seed) & 0xFFFFFFFF) << 4) | stream)
+    return gen
+
+
+def _records(**fields):
+    """Per-sample config records from per-sample field lists, for the
+    reference's host preps."""
+    return [SimpleNamespace(**dict(zip(fields, values)))
+            for values in zip(*fields.values())]
+
+
+# Color.
+
+
+def batched_mean_shift(images, deltas, thresholds=None, channels=None,
+                       oob_behavior=OutOfBoundBehavior.CLIP):
+    x = _select_channels(images, channels).to(torch.float32)
+    d = _per_sample(deltas, x)
+    if thresholds is None:
+        x = x + d
+    else:
+        t = _per_sample(thresholds, x)
+        # delta > 0 shifts dark pixels up; delta <= 0 shifts bright down.
+        gate = torch.where(d > 0, x <= t, t <= x)
+        x = torch.where(gate, x + d, x)
+    return _apply_channels(images, _finish(x, oob_behavior), channels)
+
+
+def batched_color_shift(images, deltas):
+    hsv = color_ops.rgb_to_hsv_full(images).to(torch.float32)
+    h = torch.remainder(hsv[..., 0] + _per_sample(deltas, hsv)[..., 0], 256.0)
+    hsv = torch.cat([h[..., None], hsv[..., 1:]], dim=-1)
+    return color_ops.hsv_full_to_rgb(_finish(hsv, OutOfBoundBehavior.CYCLE))
+
+
+def batched_brightness_shift(images, deltas, use_hsv: bool = False):
+    if use_hsv:
+        inter = color_ops.rgb_to_hsv_full(images).to(torch.float32)
+    else:
+        inter = color_ops.rgb_to_hsl_full(images).to(torch.float32)
+    v = torch.clamp(inter[..., 2] + _per_sample(deltas, inter)[..., 0], 0, 255)
+    inter = _finish(torch.cat([inter[..., :2], v[..., None]], dim=-1))
+    if use_hsv:
+        return color_ops.hsv_full_to_rgb(inter)
+    return color_ops.hsl_full_to_rgb(inter)
+
+
+def batched_std_shift(images, scales, channels=None):
+    x = _select_channels(images, channels).to(torch.float32)
+    mean = x.mean(dim=(1, 2), keepdim=True)
+    s = _per_sample(scales, x)
+    x = x * s - mean * (s - 1.0)
+    return _apply_channels(images, _finish(x), channels)
+
+
+def batched_boundary_equalization(images, channels=None):
+    x = _select_channels(images, channels).to(torch.float32)
+    lo = x.amin(dim=(1, 2), keepdim=True)
+    hi = x.amax(dim=(1, 2), keepdim=True)
+    delta = hi - lo
+    scale = scalar(255.0, delta) / torch.clamp(delta, min=1e-6)
+    stretched = torch.where(delta > 0, (x - lo) * scale, x)
+    return _apply_channels(images, _finish(stretched), channels)
+
+
+def batched_histogram_equalization(images, channels=None):
+    x = _select_channels(images, channels)
+    n, h, w, c = x.shape
+    flat = x.permute(0, 3, 1, 2).reshape(n * c, h, w)
+    eq = color_ops.equalize_hist_batch(flat)
+    eq = eq.reshape(n, c, h, w).permute(0, 2, 3, 1)
+    return _apply_channels(images, eq, channels)
+
+
+def batched_complement(images, thresholds=None, enable_threshold_ltes=False,
+                       channels=None):
+    x = _select_channels(images, channels).to(torch.float32)
+    if thresholds is None:
+        out = 255.0 - x
+    else:
+        t = _per_sample(thresholds, x)
+        lte = _per_sample(
+            np.broadcast_to(np.asarray(enable_threshold_ltes, dtype=bool),
+                            (x.shape[0],)),
+            x, torch.bool,
+        )
+        gate = torch.where(lte, x <= t, t <= x)
+        out = torch.where(gate, 255.0 - x, x)
+    return _apply_channels(images, _finish(out), channels)
+
+
+def batched_posterization(images, num_bits, channels=None):
+    x = _select_channels(images, channels).to(torch.int32)
+    bits = _per_sample(num_bits, x, torch.int32)
+    keep = (torch.full_like(bits, 255) >> bits) << bits
+    out = torch.bitwise_and(x, keep).to(torch.uint8)
+    return _apply_channels(images, out, channels)
+
+
+def batched_color_balance(images, ratios):
+    x = images.to(torch.float32)
+    gray = color_ops.rgb_to_gray(x)[..., None]
+    r = _per_sample(ratios, x)
+    return _finish((1.0 - r) * gray + r * x)
+
+
+def batched_channel_permutation(images, perms):
+    """``perms``: (N, C) int — out channel c reads in channel perms[n, c].
+    A gather, exact like the reference's one-hot contraction."""
+    perms = convert.to_tensor(perms, images.device, torch.int64)
+    n, h, w, c = images.shape
+    return torch.gather(images, 3, perms[:, None, None, :].expand(n, h, w, c))
+
+
+def _random_perms(n: int, channels: int, generator):
+    """One uniformly random permutation of the channels per sample."""
+    keys = torch.rand((n, channels), generator=generator,
+                      device=generator.device)
+    return torch.argsort(keys, dim=1)
+
+
+# Noise: drawn from a torch.Generator on the images' device.
+
+
+def batched_gaussion_noise(images, stds, generator):
+    return noise_ops.gaussian_noise(generator, images,
+                                    _per_sample(stds, images))
+
+
+def batched_poisson_noise(images, generator):
+    return noise_ops.poisson_noise(generator, images)
+
+
+def batched_impulse_noise(images, prob_salts, prob_peppers, generator):
+    return noise_ops.impulse_noise(generator, images,
+                                   _per_sample(prob_salts, images),
+                                   _per_sample(prob_peppers, images))
+
+
+def batched_speckle_noise(images, stds, generator):
+    return noise_ops.speckle_noise(generator, images,
+                                   _per_sample(stds, images))
+
+
+# Effect.
+
+
+def _jpeg_tables(qualities):
+    luma = np.stack([_quality_scaled_table(_LUMA_QTABLE, int(q))
+                     for q in np.asarray(qualities)]).astype(np.int32)
+    chroma = np.stack([_quality_scaled_table(_CHROMA_QTABLE, int(q))
+                       for q in np.asarray(qualities)]).astype(np.int32)
+    return luma, chroma
+
+
+def _jpeg_bgr(images, luma, chroma):
+    # BGR-compat: the reference encodes its RGB mats through cv.imencode,
+    # which reads them as BGR; run the codec on reversed channels.
+    device = images.device
+    out = jpeg_roundtrip_exact(
+        images.flip(-1), convert.to_tensor(luma, device, torch.int32),
+        convert.to_tensor(chroma, device, torch.int32),
+    )
+    return out.flip(-1)
+
+
+def batched_jpeg_quality(images, qualities):
+    """Per-sample qualities -> per-sample quant tables (host) -> the
+    bit-exact integer libjpeg pipeline (ops/jpeg_exact.py, int32)."""
+    return _jpeg_bgr(images, *_jpeg_tables(qualities))
+
+
+def batched_fog(images, roughnesses, generator, fog_rgb=(226, 238, 234),
+                ratio_maxs=1.0, ratio_mins=0.0):
+    n, h, w = images.shape[:3]
+    device = images.device
+    size = int(2 ** np.ceil(np.log2(max(h, w))))
+
+    def per_sample(values):
+        return convert.to_tensor(
+            np.broadcast_to(np.asarray(values, dtype=np.float32), (n,)),
+            device,
+        )
+
+    masks = diamond_square_mask(generator, size,
+                                per_sample(roughnesses))[:, :h, :w]
+    lo = masks.amin(dim=(1, 2), keepdim=True)
+    hi = masks.amax(dim=(1, 2), keepdim=True)
+    masks = (masks - lo) / torch.clamp(hi - lo, min=1e-6)
+    rmax = per_sample(ratio_maxs)
+    rmin = per_sample(ratio_mins)
+    masks = masks * (rmax - rmin)[:, None, None] + rmin[:, None, None]
+
+    fog = convert.to_tensor(np.asarray(fog_rgb, dtype=np.float32), device)
+    if fog.dim() == 2:          # per-sample colors (N, 3)
+        fog = fog[:, None, None, :]
+    return blend(images, fog, alpha=masks)
+
+
+# Blur: host-built per-sample kernels, one grouped convolution.
+
+
+def _trim_kernels(kernels) -> np.ndarray:
+    """(N, K, K) kernels cropped to the narrowest centred odd window that
+    holds every nonzero tap.  The reference pads kernels to a width ladder
+    (keys of XLA's compile cache); the extra taps are zeros, which change
+    nothing but the reflect pad, and torch's reflect mode refuses a pad as
+    wide as a small image."""
+    kernels = np.asarray(kernels, dtype=np.float32)
+    size = kernels.shape[-1]
+    center = size // 2
+    taps = np.argwhere(np.any(kernels != 0, axis=0))
+    half = int(np.abs(taps - center).max()) if len(taps) else 0
+    window = slice(center - half, center + half + 1)
+    return np.ascontiguousarray(kernels[:, window, window])
+
+
+def _batched_filter2d(images, kernels):
+    """Per-sample 2D kernels (N, K, K) over a uint8 batch."""
+    return blur_ops.filter2d(images, _trim_kernels(kernels))
+
+
+def _prep_kernels(name, records, shape):
+    arrays, _ = _REFERENCE_CATALOG[name][0](records, shape, 0)
+    return arrays['kernels']
+
+
+def batched_gaussian_blur(images, sigmas):
+    return _batched_filter2d(images, _prep_kernels(
+        'gaussian_blur', _records(sigma=list(np.asarray(sigmas))),
+        images.shape))
+
+
+def batched_defocus_blur(images, radii):
+    return _batched_filter2d(images, _prep_kernels(
+        'defocus_blur', _records(radius=list(np.asarray(radii))),
+        images.shape))
+
+
+def batched_motion_blur(images, radii, angles):
+    return _batched_filter2d(images, _prep_kernels(
+        'motion_blur', _records(radius=list(np.asarray(radii)),
+                                angle=list(np.asarray(angles))),
+        images.shape))
+
+
+def _permute_pixels(images, flat_idx):
+    """out[n, p] = images[n, flat_idx[n, p]] over flattened pixels."""
+    n, h, w, c = images.shape
+    idx = convert.to_tensor(flat_idx, images.device, torch.int64)
+    idx = idx.reshape(n, h * w, 1).expand(n, h * w, c)
+    return torch.gather(images.reshape(n, h * w, c), 1, idx).reshape(
+        n, h, w, c)
+
+
+def batched_glass_blur(images, sigmas, deltas, loops, rng):
+    """Gaussian blur + the iterated random pixel swaps, batched: the swap
+    permutation is the per-element path's own host routine (numpy rng),
+    applied on the device as one gather."""
+    n, h, w = images.shape[:3]
+    blurred = batched_gaussian_blur(images, sigmas)
+    flat_idx = np.empty((n, h, w), dtype=np.int64)
+    for i in range(n):
+        pos_y, pos_x = build_glass_blur_permutation(
+            (h, w), int(deltas[i]), int(loops[i]), rng
+        )
+        flat_idx[i] = pos_y * w + pos_x
+    return _permute_pixels(blurred, flat_idx.reshape(n, h * w))
+
+
+def _glass_blur_rolls(x, generator, deltas, loops, dmax: int, lmax: int):
+    """Iterated lattice swaps as masked rolls (the reference's
+    ``_glass_blur_rolls``): each iteration swaps a (2d+1)-strided lattice
+    of pixels with a jittered neighbour within +-d; lattice spacing keeps
+    the swap pairs disjoint, so each (dy, dx) jitter class applies as two
+    rolls under its class mask.  Jitter draws come from ``generator``."""
+    n, h, w = x.shape[:3]
+    device = x.device
+    py = torch.arange(h, device=device)[None, :, None]
+    px = torch.arange(w, device=device)[None, None, :]
+    d = convert.to_tensor(deltas, device, torch.int64)[:, None, None]
+    stride = 2 * d + 1
+    loops_g = convert.to_tensor(loops, device, torch.int64)[:, None, None]
+
+    def draw(shape):
+        return torch.randint(0, 1 << 30, shape, generator=generator,
+                             device=device)
+
+    for it in range(lmax):
+        offs = draw((2, n, 1, 1))
+        off_y = offs[0] % stride
+        off_x = offs[1] % stride
+        jy = draw((n, h, w)) % stride - d
+        jx = draw((n, h, w)) % stride - d
+        lat = (
+            (py >= off_y) & (py < h - d) & ((py - off_y) % stride == 0)
+            & (px >= off_x) & (px < w - d) & ((px - off_x) % stride == 0)
+            & (it < loops_g)
+        )
+        for dy in range(-dmax, dmax + 1):
+            for dx in range(-dmax, dmax + 1):
+                if dy == 0 and dx == 0:
+                    continue
+                m_c = (
+                    lat & (jy == dy) & (jx == dx)
+                    & (py + dy >= 0) & (py + dy <= h - 1)
+                    & (px + dx >= 0) & (px + dx <= w - 1)
+                )
+                m_t = torch.roll(m_c, (dy, dx), (1, 2))
+                fwd = torch.roll(x, (-dy, -dx), (1, 2))
+                bwd = torch.roll(x, (dy, dx), (1, 2))
+                x = torch.where(m_c[..., None], fwd,
+                                torch.where(m_t[..., None], bwd, x))
+    return x
+
+
+# Streaks: stencils blended on the device.
+
+
+def _blend_streak_masks(images, masks, colors, alphas):
+    """images (N,H,W,3) u8; masks (N,H,W) 0/1; colors (N,3) integral;
+    alphas (N,)."""
+    color = convert.to_tensor(np.asarray(colors, dtype=np.float32),
+                              images.device)[:, None, None, :]
+    return blend(images, color,
+                 np_mask=convert.to_tensor(masks, images.device) > 0,
+                 alpha=_per_sample(alphas, images))
+
+
+def _dash_gate(length: int, dash_thickness, dash_gap):
+    """(N, length) bool, True where the dash gap blanks a row/column
+    (zero dash params -> no blanking)."""
+    idx = torch.arange(length, dtype=torch.float32,
+                       device=dash_thickness.device)[None, :]
+    period = torch.clamp(dash_thickness + dash_gap, min=1.0)[:, None]
+    gated = torch.remainder(idx, period) < dash_gap[:, None]
+    enabled = ((dash_thickness > 0) & (dash_gap > 0))[:, None]
+    return gated & enabled
+
+
+def _apply_line_streak(images, seed, arrays, static):
+    """Periodic line stencils generated on the device from index
+    arithmetic, two sequential blends (line intersections blend twice)."""
+    n, h, w = images.shape[:3]
+
+    def dev(key):
+        return convert.to_tensor(arrays[key], images.device)
+
+    t = dev('thickness')
+    period = torch.clamp(t + dev('gap'), min=1.0)
+    cols = torch.arange(w, dtype=torch.float32, device=images.device)[None]
+    rows = torch.arange(h, dtype=torch.float32, device=images.device)[None]
+    vert_cols = torch.remainder(cols, period[:, None]) < t[:, None]
+    hori_rows = torch.remainder(rows, period[:, None]) < t[:, None]
+    dash_t, dash_g = dev('dash_thickness'), dev('dash_gap')
+    dash_r = _dash_gate(h, dash_t, dash_g)
+    dash_c = _dash_gate(w, dash_t, dash_g)
+    vert = (vert_cols[:, None, :] & ~dash_r[:, :, None]
+            & dev('enable_vert')[:, None, None])
+    hori = (hori_rows[:, :, None] & ~dash_c[:, None, :]
+            & dev('enable_hori')[:, None, None])
+    out = _blend_streak_masks(images, vert, arrays['colors'],
+                              arrays['alphas'])
+    return _blend_streak_masks(out, hori, arrays['colors'], arrays['alphas'])
+
+
+def _apply_rectangle_streak(images, seed, arrays, static):
+    """Concentric frame stencils on the device, accumulated box by box
+    (padding boxes at -1e6 add nothing)."""
+    n, h, w = images.shape[:3]
+    device = images.device
+    t = convert.to_tensor(arrays['thickness'], device)[:, None, None]
+    ys = torch.arange(h, dtype=torch.float32, device=device)[None, :, None]
+    xs = torch.arange(w, dtype=torch.float32, device=device)[None, None, :]
+    boxes = convert.to_tensor(arrays['boxes'], device)
+    vert = torch.zeros((n, h, w), dtype=torch.bool, device=device)
+    hori = torch.zeros_like(vert)
+    live = int(np.max((np.asarray(arrays['boxes'])[..., 0] > -1e5).sum(1),
+                      initial=0))
+    for k in range(live):
+        up, down, left, right = (
+            boxes[:, k, i][:, None, None] for i in range(4)
+        )
+        in_up = down - t + 1.0
+        in_down = up + t - 1.0
+        in_left = right - t + 1.0
+        in_right = left + t - 1.0
+        y_band = (ys >= up) & (ys <= down)
+        vert |= y_band & (((xs >= left) & (xs <= in_right))
+                          | ((xs >= in_left) & (xs <= right)))
+        x_core = (xs >= in_right + 1.0) & (xs <= in_left - 1.0)
+        hori |= x_core & (((ys >= up) & (ys <= in_down))
+                          | ((ys >= in_up) & (ys <= down)))
+    dash_t = convert.to_tensor(arrays['dash_thickness'], device)
+    dash_g = convert.to_tensor(arrays['dash_gap'], device)
+    mask = ((vert & ~_dash_gate(h, dash_t, dash_g)[:, :, None])
+            | (hori & ~_dash_gate(w, dash_t, dash_g)[:, None, :]))
+    return _blend_streak_masks(images, mask, arrays['colors'],
+                               arrays['alphas'])
+
+
+def _apply_ellipse_streak(images, seed, arrays, static):
+    """Host-rasterized ring stencils (cv2-exact), blended on the device."""
+    return _blend_streak_masks(images, arrays['stencil'], arrays['colors'],
+                               arrays['alphas'])
+
+
+def _streak_via_prep(name, images, configs):
+    arrays, static = _REFERENCE_CATALOG[name][0](configs, images.shape, 0)
+    return _CATALOG[name](images, 0, arrays, static)
+
+
+def batched_line_streak(images, configs):
+    return _streak_via_prep('line_streak', images, configs)
+
+
+def batched_rectangle_streak(images, configs):
+    return _streak_via_prep('rectangle_streak', images, configs)
+
+
+def batched_ellipse_streak(images, configs):
+    return _streak_via_prep('ellipse_streak', images, configs)
+
+
+# Shape-changing ops as per-sample resampling matrices.
+
+
+def _nearest_up_linear_down_weights(n: int, rn):
+    """(N, n, n) weights of LINEAR-downsample-to-rn composed with
+    NEAREST-upsample-back (the pixelation map), per-sample ``rn`` (N,)."""
+    device = rn.device
+    i = torch.arange(n, device=device)[None, :]
+    rn_col = rn[:, None].to(torch.int64)
+    a = torch.minimum(torch.clamp((i * rn_col) // n, min=0), rn_col - 1)
+    scale = scalar(float(n), rn.to(torch.float32)) / rn.to(torch.float32)
+    c = (a.to(torch.float32) + 0.5) * scale[:, None] - 0.5
+    base = torch.floor(c)
+    w1 = (c - base)[..., None]
+    idx0 = torch.clamp(base.to(torch.int64), 0, n - 1)[..., None]
+    idx1 = torch.clamp(base.to(torch.int64) + 1, 0, n - 1)[..., None]
+    iota = torch.arange(n, device=device)[None, None, :]
+    return ((iota == idx0).to(torch.float32) * (1.0 - w1)
+            + (iota == idx1).to(torch.float32) * w1)
+
+
+def _apply_pixelation(images, seed, arrays, static):
+    n, h, w = images.shape[:3]
+    device = images.device
+    r_rows = _nearest_up_linear_down_weights(
+        h, convert.to_tensor(arrays['rh'], device))
+    r_cols = _nearest_up_linear_down_weights(
+        w, convert.to_tensor(arrays['rw'], device))
+    x = images.to(torch.float32)
+    x = torch.einsum('nis,nswc->niwc', r_rows, x)
+    x = torch.einsum('njs,nisc->nijc', r_cols, x)
+    return _finish(x)
+
+
+def _cubic_crop_weights(n: int, rn):
+    """(N, n, n) weights of CUBIC-upsample-to-rn composed with the centre
+    crop back to n (one zoom_in_blur step), per-sample ``rn`` (N,)."""
+    device = rn.device
+    rn_f = rn.to(torch.float32)
+    up = (rn.to(torch.int64) - n) // 2
+    i = torch.arange(n, device=device)[None, :] + up[:, None]
+    scale = scalar(float(n), rn_f) / rn_f
+    c = (i.to(torch.float32) + 0.5) * scale[:, None] - 0.5
+    base = torch.floor(c)
+    iota = torch.arange(n, device=device)[None, None, :]
+    acc = torch.zeros((rn.shape[0], n, n), dtype=torch.float32,
+                      device=device)
+    a = -0.75
+    for tap in (-1, 0, 1, 2):
+        idx = base.to(torch.int64) + tap
+        dist = torch.abs(c - idx.to(torch.float32))
+        d2 = dist * dist
+        d3 = d2 * dist
+        wt = torch.where(
+            dist <= 1.0,
+            (a + 2.0) * d3 - (a + 3.0) * d2 + 1.0,
+            torch.where(
+                dist < 2.0,
+                a * d3 - 5.0 * a * d2 + 8.0 * a * dist - 4.0 * a,
+                0.0,
+            ),
+        )
+        clipped = torch.clamp(idx, 0, n - 1)[..., None]
+        acc = acc + (iota == clipped).to(torch.float32) * wt[..., None]
+    return acc / acc.sum(dim=2, keepdim=True)      # cv2 row normalization
+
+
+def _apply_zoom(images, seed, arrays, static):
+    """Average of the centre-cropped cubic zooms, mixed by alpha.  Steps
+    past every sample's count add zero in the reference; they are skipped."""
+    n, h, w = images.shape[:3]
+    device = images.device
+    x = images.to(torch.float32)
+    acc = x
+    count = convert.to_tensor(arrays['count'], device)
+    for k in range(int(np.max(arrays['count'], initial=0))):
+        rows = _cubic_crop_weights(
+            h, convert.to_tensor(arrays['rhs'][:, k], device))
+        cols = _cubic_crop_weights(
+            w, convert.to_tensor(arrays['rws'][:, k], device))
+        z = torch.einsum('nis,nswc->niwc', rows, x)
+        z = torch.einsum('njs,nisc->nijc', cols, z)
+        live = (k < count)[:, None, None, None]
+        acc = acc + torch.where(live, z, 0.0)
+    total = (count + 1).to(torch.float32)[:, None, None, None]
+    alpha = _per_sample(arrays['alpha'], x)
+    mixed = (1.0 - alpha) * x + alpha * torch.round(acc / total)
+    return _finish(mixed)
+
+
+# ---------------------------------------------------------------------------
+# Per-name dispatch.  Each name's host prep (configs -> parameter arrays and
+# a static signature) is the reference's own, from its compiled catalog; the
+# apply below runs it on the device.  In eager PyTorch one function serves
+# both of the reference's dispatches: its full / masked / sub modes, the
+# 8-slot sub-batch padding and the kernel-width ladder only keyed XLA's
+# compile cache.  A member sub-batch is gathered exactly, distorted and
+# scattered back.
+# ---------------------------------------------------------------------------
+
+
+def _apply_mean_shift(images, seed, arrays, static):
+    channels, oob, has_thresholds = static
+    return batched_mean_shift(
+        images, arrays['deltas'],
+        arrays['thresholds'] if has_thresholds else None,
+        channels=channels, oob_behavior=oob,
+    )
+
+
+def _apply_complement(images, seed, arrays, static):
+    channels, has_thresholds = static
+    if not has_thresholds:
+        return batched_complement(images, None, channels=channels)
+    return batched_complement(images, arrays['thresholds'],
+                              enable_threshold_ltes=arrays['ltes'],
+                              channels=channels)
+
+
+def _apply_histogram_equalization(images, seed, arrays, static):
+    gate = convert.to_tensor(arrays['chan_gate'], images.device)
+    return torch.where(gate[:, None, None, :] > 0,
+                       batched_histogram_equalization(images), images)
+
+
+def _apply_channel_permutation(images, seed, arrays, static):
+    gen = _generator(images.device, seed)
+    return batched_channel_permutation(
+        images, _random_perms(images.shape[0], images.shape[-1], gen))
+
+
+def _apply_fog(images, seed, arrays, static):
+    return batched_fog(
+        images, arrays['roughnesses'], _generator(images.device, seed),
+        fog_rgb=arrays['fog_rgb'], ratio_maxs=arrays['rmax'],
+        ratio_mins=arrays['rmin'],
+    )
+
+
+def _apply_filter2d(images, seed, arrays, static):
+    return _batched_filter2d(images, arrays['kernels'])
+
+
+def _apply_glass_blur(images, seed, arrays, static):
+    blurred = _batched_filter2d(images, arrays['kernels'])
+    if static and static[0] == 'rolls':
+        return _glass_blur_rolls(
+            blurred, _generator(images.device, seed), arrays['deltas'],
+            arrays['loops'], static[1], static[2],
+        )
+    return _permute_pixels(blurred, arrays['flat_idx'])
+
+
+_CATALOG = {
+    'mean_shift': _apply_mean_shift,
+    'color_shift': lambda images, seed, arrays, static:
+        batched_color_shift(images, arrays['delta']),
+    'brightness_shift': lambda images, seed, arrays, static:
+        batched_brightness_shift(images, arrays['deltas'],
+                                 use_hsv=static[0]),
+    'std_shift': lambda images, seed, arrays, static:
+        batched_std_shift(images, arrays['scale'], channels=static[0]),
+    'boundary_equalization': lambda images, seed, arrays, static:
+        batched_boundary_equalization(images, channels=static[0]),
+    'histogram_equalization': _apply_histogram_equalization,
+    'complement': _apply_complement,
+    'posterization': lambda images, seed, arrays, static:
+        batched_posterization(images, arrays['num_bits'],
+                              channels=static[0]),
+    'color_balance': lambda images, seed, arrays, static:
+        batched_color_balance(images, arrays['ratio']),
+    'channel_permutation': _apply_channel_permutation,
+    'gaussion_noise': lambda images, seed, arrays, static:
+        batched_gaussion_noise(images, arrays['std'],
+                               _generator(images.device, seed)),
+    'poisson_noise': lambda images, seed, arrays, static:
+        batched_poisson_noise(images, _generator(images.device, seed)),
+    'impulse_noise': lambda images, seed, arrays, static:
+        batched_impulse_noise(images, arrays['prob_salt'],
+                              arrays['prob_pepper'],
+                              _generator(images.device, seed)),
+    'speckle_noise': lambda images, seed, arrays, static:
+        batched_speckle_noise(images, arrays['std'],
+                              _generator(images.device, seed)),
+    'jpeg_quality': lambda images, seed, arrays, static:
+        _jpeg_bgr(images, arrays['luma'], arrays['chroma']),
+    'pixelation': _apply_pixelation,
+    'fog': _apply_fog,
+    'gaussian_blur': _apply_filter2d,
+    'defocus_blur': _apply_filter2d,
+    'motion_blur': _apply_filter2d,
+    'glass_blur': _apply_glass_blur,
+    'zoom_in_blur': _apply_zoom,
+    'line_streak': _apply_line_streak,
+    'rectangle_streak': _apply_rectangle_streak,
+    'ellipse_streak': _apply_ellipse_streak,
+}
+assert set(_CATALOG) == set(_REFERENCE_CATALOG)
+
+# The catalog names that draw from the device generator: the port matches
+# the reference on them in distribution only.
+RNG_CONSUMING = frozenset({
+    'gaussion_noise', 'poisson_noise', 'impulse_noise', 'speckle_noise',
+    'channel_permutation', 'fog', 'glass_blur',
+})
+
+
+def batch_distort_members(name: str, group, images, seed: int):
+    """Apply one distortion to the (sample_idx, config) pairs of ``group``
+    (sample indices ascending) and return the new batch; the other samples
+    pass through unchanged.  The host prep raises AssertionError when a
+    field that must be shared differs within the group.
+
+    The prep sees the members' configs in group order, as the reference's
+    sub-batch mode does; for more than 8 members of a partial batch the
+    reference preps the whole batch instead, which changes only the host
+    permutations of a glass_blur draw beyond the policy's range
+    (delta > 2 or loop > 8)."""
+    n = images.shape[0]
+    idx = [sample_idx for sample_idx, _ in group]
+    configs = [config for _, config in group]
+    prep = _REFERENCE_CATALOG[name][0]
+    arrays, static = prep(configs, (len(idx),) + tuple(images.shape[1:]),
+                          seed)
+    apply = _CATALOG[name]
+    if idx == list(range(n)):
+        return apply(images, seed, arrays, static)
+    idx_t = torch.as_tensor(idx, device=images.device)
+    res = apply(images.index_select(0, idx_t), seed, arrays, static)
+    return images.index_copy(0, idx_t, res)
+
+
+def batch_distort_grouped(name: str, members, images, seed: int):
+    """Apply one distortion to any (sample_idx, config) pairs: the members
+    that share the reference's static signature apply together, in
+    signature order, and a group whose prep refuses it (a shape-static
+    field outside the signature differs) applies member by member."""
+    if name in _PER_SAMPLE_ONLY:
+        groups = [[m] for m in members]
+    else:
+        by_sig = defaultdict(list)
+        for member in members:
+            by_sig[_static_signature(name, member[1])].append(member)
+        groups = [by_sig[sig] for sig in sorted(by_sig)]
+    for group in groups:
+        try:
+            images = batch_distort_members(name, group, images, seed)
+        except AssertionError:
+            if len(group) == 1:
+                raise
+            for member in group:
+                images = batch_distort_members(name, [member], images, seed)
+    return images
+
+
+def batch_distort_images(name: str, configs: Sequence, images, seed: int = 0):
+    """Apply one catalog distortion to a uint8 (N, H, W, 3) batch, one
+    config per sample (the counterpart of the reference's
+    ``batch_distort_images`` and ``batch_distort_images_compiled``).
+    ``seed`` seeds the rng-consuming ops."""
+    if len(configs) != images.shape[0]:
+        raise ValueError(f'{len(configs)} configs for a batch of '
+                         f'{images.shape[0]}')
+    return batch_distort_members(name, list(enumerate(configs)), images,
+                                 seed)

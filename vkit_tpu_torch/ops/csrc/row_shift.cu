@@ -1,10 +1,12 @@
 // Per-row integer shifts: the data-movement half of the two-shear affine
 // warp (vkit_tpu_torch/ops/warp_mxu.py apply_line_resample).
 //
-// Replaces two TPU kernels of vkit_tpu/ops/pallas_kernels.py:
+// Replaces three TPU kernels of vkit_tpu/ops/pallas_kernels.py:
 //   vk_row_shift_window_slab  <- _row_shift_window_slab_kernel /
 //                                row_shift_window_slab (K1)
 //   vk_row_shift              <- _row_shift_kernel / row_shift (K2)
+//   vk_row_shift_window       <- _row_shift_window_kernel /
+//                                row_shift_window (K4: K1 with one channel)
 //
 // What bounds it on the H100: bytes moved.  Each output element is one
 // 4-byte read and one 4-byte write with no arithmetic, so the ceiling is
@@ -70,6 +72,17 @@ extern "C" int vk_row_shift_window_slab(
   row_shift_window_slab_kernel<<<blocks_for(total), kThreads, 0,
                                  (cudaStream_t)stream>>>(
       x, starts, out, total, channels, width, out_width, border);
+  return (int)cudaGetLastError();
+}
+
+// K4 is K1 with one channel: the same device code, its own entry point.
+extern "C" int vk_row_shift_window(
+    const float* x, const int32_t* starts, float* out, int64_t rows,
+    int width, int out_width, float border, void* stream) {
+  int64_t total = rows * (int64_t)out_width;
+  row_shift_window_slab_kernel<<<blocks_for(total), kThreads, 0,
+                                 (cudaStream_t)stream>>>(
+      x, starts, out, total, 1, width, out_width, border);
   return (int)cudaGetLastError();
 }
 

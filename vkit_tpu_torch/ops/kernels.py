@@ -1,11 +1,15 @@
 """Hand-written Hopper kernels of the port, their wrappers and plain twins.
 
-Three CUDA kernels replace the Pallas kernels of
-vkit_tpu/ops/pallas_kernels.py that the page-synthesis path runs:
+Four CUDA kernels replace the Pallas kernels of
+vkit_tpu/ops/pallas_kernels.py:
 
   row_shift_window_slab  (csrc/row_shift.cu)        <- row_shift_window_slab
   row_shift              (csrc/row_shift.cu)        <- row_shift
   banded_line_resample   (csrc/banded_resample.cu)  <- banded_line_resample
+  row_shift_window       (csrc/row_shift.cu)        <- row_shift_window
+
+The page-synthesis path runs the first three; ``row_shift_window`` (K1 with
+one channel) has no caller on a path, in the JAX package or here.
 
 The sources build at first use with ``nvcc`` into one shared library with a
 plain C interface under ``ops/build/`` (named by a hash of the sources and
@@ -51,6 +55,7 @@ LAUNCHES = {
     'row_shift_window_slab': 0,
     'row_shift': 0,
     'banded_line_resample': 0,
+    'row_shift_window': 0,
 }
 
 _lib = None
@@ -121,6 +126,10 @@ def load_library() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, f32, ptr,
         ]
         lib.vk_banded_line_resample.restype = i32
+        lib.vk_row_shift_window.argtypes = [
+            ptr, ptr, ptr, i64, i32, i32, f32, ptr,
+        ]
+        lib.vk_row_shift_window.restype = i32
         _lib = lib
         return lib
 
@@ -205,6 +214,48 @@ def row_shift_window_slab(x, starts, out_width: int,
         float(border_value), _stream(),
     )
     _check_launch('row_shift_window_slab', code)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K4: row_shift_window (K1 with one channel).
+# ---------------------------------------------------------------------------
+
+
+def row_shift_window_plain(x, starts, out_width: int,
+                           border_value: float = 0.0):
+    """Plain twin of K4."""
+    return row_shift_window_slab_plain(
+        x[:, :, None, :], starts, out_width, border_value
+    )[:, :, 0, :]
+
+
+def row_shift_window(x, starts, out_width: int, border_value: float = 0.0):
+    """``out[b, l, j] = x[b, l, starts[b, l] + j]``; positions outside
+    ``[0, W)`` read ``border_value``.
+
+    ``x``: (B, L, W) float32; ``starts``: (B, L) int32.  As for the TPU
+    kernel, needs ``W + out_width <= 2048`` (indices wrap mod 2048)."""
+    _check_tensor('x', x, torch.float32, 3, x.device)
+    _check_tensor('starts', starts, torch.int32, 2, x.device)
+    b, l, in_width = x.shape
+    if tuple(starts.shape) != (b, l):
+        raise ValueError(f'starts {tuple(starts.shape)} != {(b, l)}')
+    if out_width < 1 or in_width + out_width > WINDOW:
+        raise ValueError(
+            f'in_width {in_width} + out_width {out_width} exceeds {WINDOW}'
+        )
+    if x.device.type == 'cpu':
+        return row_shift_window_plain(x, starts, out_width, border_value)
+    out = torch.empty((b, l, out_width), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = load_library()
+    code = lib.vk_row_shift_window(
+        _ptr(x), _ptr(starts), _ptr(out), b * l, in_width, out_width,
+        float(border_value), _stream(),
+    )
+    _check_launch('row_shift_window', code)
     return out
 
 

@@ -1,5 +1,5 @@
-"""The batched page-synthesis program on the device: assemble -> geometric
-warp -> finish -> crops.
+"""The batched page-synthesis program on the device: assemble ->
+photometric stage -> geometric warp -> finish -> crops.
 
 Port of vkit_tpu/synth/device.py: ``_composite_overlays``,
 ``_extract_crops_program``, ``_finish_program_const``, ``_finish_program``,
@@ -8,10 +8,12 @@ plan sampling, active masks, polygon co-transform, crop-window sampling)
 is the reference's own code, called in the same order with the same rng,
 so plans and crop windows match the JAX run draw for draw.
 
-Not ported yet (raise NotImplementedError): the photometric stage
-(ROADMAP.md slice 3), char gaussian maps (slice 4) and the text-region
-stream (slice 5).
+The photometric stage is on by default, as in the reference: its policy
+draws come from the same ``rng`` before the geometric plans do.  Not ported
+yet (raise NotImplementedError): char gaussian maps (ROADMAP.md slice 4) and
+the text-region stream (slice 5).
 """
+import contextlib
 import queue
 import threading
 from typing import List, Optional, Sequence, Tuple
@@ -42,6 +44,7 @@ from vkit_tpu.synth.prep import CHAR_HEIGHT, TEXT_LINE_HEIGHT, HostPage
 from .. import convert
 from ..engine.font.atlas import pack_placements
 from ..mechanism.batched import batched_plan_warp
+from ..mechanism.batched_random import batch_random_photometric_distort
 from ..ops.glyph import build_placements, composite_glyphs, composite_patches
 
 __all__ = ['CropConfig', 'SynthBatchResult', 'synthesize_page_batch',
@@ -175,11 +178,23 @@ def _co_transform(plans, pages):
     return word_polygons, char_polygons, char_quads, content_boxes
 
 
-def _check_ported(enable_photometric, emit_char_gaussians, region_config):
-    if enable_photometric:
-        raise NotImplementedError(
-            'the photometric stage is not ported yet (ROADMAP.md slice 3)'
-        )
+def _spans(timer, device):
+    """``timer.measure(name)``, closed by a device synchronize; a span that
+    does nothing without a timer."""
+    if timer is None:
+        return lambda name: contextlib.nullcontext()
+
+    @contextlib.contextmanager
+    def measure(name):
+        with timer.measure(name):
+            yield
+            if device.type == 'cuda':
+                torch.cuda.synchronize(device)
+
+    return measure
+
+
+def _check_ported(emit_char_gaussians, region_config):
     if emit_char_gaussians:
         raise NotImplementedError(
             'char gaussian maps are not ported yet (ROADMAP.md slice 4)'
@@ -195,7 +210,7 @@ def synthesize_page_batch(
     level: int,
     rng: RandomGenerator,
     out_shape: Optional[Tuple[int, int]] = None,
-    enable_photometric: bool = False,
+    enable_photometric: bool = True,
     enable_geometric: bool = True,
     placement_bucket: int = 1024,
     crop_config: Optional[CropConfig] = None,
@@ -203,6 +218,7 @@ def synthesize_page_batch(
     region_config=None,
     keep_on_device: bool = False,
     device='cuda',
+    timer=None,
 ) -> SynthBatchResult:
     """Run the synthesis program over N host-prepped pages on ``device``.
 
@@ -211,8 +227,13 @@ def synthesize_page_batch(
     ``keep_on_device`` the raster outputs stay tensors on ``device``;
     otherwise they are fetched to numpy.  Crop tensors hold exactly
     ``num_crops`` rows (the reference pads them to a power of two for its
-    compiled shapes)."""
-    _check_ported(enable_photometric, emit_char_gaussians, region_config)
+    compiled shapes).
+
+    ``timer``: an object with a ``measure(name)`` context manager, such as
+    vkit_tpu's ``StepTimer``.  With one, each stage is a span that ends with
+    a device synchronize, so it holds the stage's device time; the spans
+    serialize host and device work, so leave it None outside profiling."""
+    _check_ported(emit_char_gaussians, region_config)
     device = convert.resolve_device(device)
     n = len(pages)
     if n == 0:
@@ -221,98 +242,117 @@ def synthesize_page_batch(
     if any(p.background.shape[:2] != (height, width) for p in pages):
         raise ValueError('pages of one batch must share their shape')
 
-    # 1. Assemble: glyphs, then the above-text layers (symbols, seals).
-    assembled = convert.to_tensor(
-        np.stack([p.background for p in pages]), device
-    )
-    entries = [
-        (layout, anchor, sample_id, color, atlas)
-        for sample_id, page in enumerate(pages)
-        for layout, anchor, color, atlas in page.line_entries
-    ]
-    if entries:
-        placements, tiles, out_tile = pack_placements(
-            entries, global_atlas_pack(), bucket=placement_bucket,
-            device=device,
-        )
-        assembled = composite_glyphs(assembled, tiles, placements,
-                                     out_tile=out_tile)
-    overlay = [
-        (sample_id, entry)
-        for sample_id, page in enumerate(pages)
-        for entry in page.overlay_entries
-    ]
-    if overlay:
-        assembled = _composite_overlays(assembled, overlay)
+    measure = _spans(timer, device)
 
-    # 2. Geometric stage: one warp moves image + labels together, the
+    # 1. Assemble: glyphs, then the above-text layers (symbols, seals).
+    with measure('assemble'):
+        assembled = convert.to_tensor(
+            np.stack([p.background for p in pages]), device
+        )
+        entries = [
+            (layout, anchor, sample_id, color, atlas)
+            for sample_id, page in enumerate(pages)
+            for layout, anchor, color, atlas in page.line_entries
+        ]
+        if entries:
+            placements, tiles, out_tile = pack_placements(
+                entries, global_atlas_pack(), bucket=placement_bucket,
+                device=device,
+            )
+            assembled = composite_glyphs(assembled, tiles, placements,
+                                         out_tile=out_tile)
+        overlay = [
+            (sample_id, entry)
+            for sample_id, page in enumerate(pages)
+            for entry in page.overlay_entries
+        ]
+        if overlay:
+            assembled = _composite_overlays(assembled, overlay)
+
+    # 2. Photometric stage: policy-sampled rounds on the device.
+    if enable_photometric:
+        with measure('photometric'):
+            assembled = batch_random_photometric_distort(assembled, level,
+                                                         rng)
+
+    # 3. Geometric stage: one warp moves image + labels together, the
     # final resize folded into each plan.
     out_shape = tuple(out_shape or (height, width))
-    if enable_geometric:
-        raw_plans = sample_geometric_plans(n, (height, width), level, rng)
-    else:
-        raw_plans = [nop_plan((height, width)) for _ in range(n)]
-    plans = [rescale_plan_to(p, out_shape) for p in raw_plans]
+    with measure('plan-host'):
+        if enable_geometric:
+            raw_plans = sample_geometric_plans(n, (height, width), level,
+                                               rng)
+        else:
+            raw_plans = [nop_plan((height, width)) for _ in range(n)]
+        plans = [rescale_plan_to(p, out_shape) for p in raw_plans]
 
-    labels = convert.to_tensor(np.stack([p.label_stack for p in pages]),
-                               device, torch.float32)
-    stack = torch.cat([assembled.to(torch.float32), labels], dim=-1)
-    del labels
-    warped, _, _, maps = batched_plan_warp(
-        plans, stack, return_maps=True, mode='auto'
-    )
-    del stack
+    with measure('warp'):
+        labels = convert.to_tensor(
+            np.stack([p.label_stack for p in pages]), device, torch.float32
+        )
+        stack = torch.cat([assembled.to(torch.float32), labels], dim=-1)
+        del labels
+        warped, _, _, maps = batched_plan_warp(
+            plans, stack, return_maps=True, mode='auto'
+        )
+        del stack
     if tuple(warped.shape[1:3]) != out_shape:
         raise RuntimeError(f'warp canvas {tuple(warped.shape[1:3])} != '
                            f'{out_shape}')
 
-    active = np.zeros((n,) + out_shape, dtype=np.uint8)
-    for idx, plan in enumerate(plans):
-        active[idx] = warp_active_mask(plan).mat
-    active = convert.to_tensor(active, device)
+    with measure('active-host'):
+        active = np.zeros((n,) + out_shape, dtype=np.uint8)
+        for idx, plan in enumerate(plans):
+            active[idx] = warp_active_mask(plan).mat
+        active = convert.to_tensor(active, device)
 
-    # 3. Finish: height correction, active gate, uint8 images.
-    if maps is None:
-        images, label_stack, active_u8 = _finish_program_const(
-            warped,
-            convert.to_tensor(_affine_stretches(plans), device),
-            active,
-        )
-    else:
-        images, label_stack, active_u8 = _finish_program(
-            warped, maps[0], maps[1], active
-        )
-    del warped, maps
+    # 4. Finish: height correction, active gate, uint8 images.
+    with measure('finish'):
+        if maps is None:
+            images, label_stack, active_u8 = _finish_program_const(
+                warped,
+                convert.to_tensor(_affine_stretches(plans), device),
+                active,
+            )
+        else:
+            images, label_stack, active_u8 = _finish_program(
+                warped, maps[0], maps[1], active
+            )
+        del warped, maps
 
-    word_polygons, char_polygons, char_quads, content_boxes = \
-        _co_transform(plans, pages)
+    with measure('polygons-host'):
+        word_polygons, char_polygons, char_quads, content_boxes = \
+            _co_transform(plans, pages)
 
-    # 4. Crops: windows from analytic info, cut on the device.
+    # 5. Crops: windows from analytic info, cut on the device.
     crop_images = crop_labels = crop_active = crop_page_ids = None
     crop_windows = None
     num_crops = 0
     if crop_config is not None:
-        sids, c_ups, c_lefts = _sample_crop_windows(
-            out_shape, content_boxes, word_polygons, crop_config, rng
-        )
-        if len(sids):
-            num_crops = len(sids)
-            crop_images, crop_labels, crop_active = _extract_crops_program(
-                images, label_stack, active_u8, sids, c_ups, c_lefts,
-                size=crop_config.core_size,
+        with measure('crops'):
+            sids, c_ups, c_lefts = _sample_crop_windows(
+                out_shape, content_boxes, word_polygons, crop_config, rng
             )
-            crop_page_ids = sids
-            crop_windows = np.stack([c_ups, c_lefts], axis=1)
+            if len(sids):
+                num_crops = len(sids)
+                crop_images, crop_labels, crop_active = \
+                    _extract_crops_program(
+                        images, label_stack, active_u8, sids, c_ups,
+                        c_lefts, size=crop_config.core_size,
+                    )
+                crop_page_ids = sids
+                crop_windows = np.stack([c_ups, c_lefts], axis=1)
 
     if not keep_on_device:
-        images, label_stack, active_u8 = (
-            t.cpu().numpy() for t in (images, label_stack, active_u8)
-        )
-        if crop_images is not None:
-            crop_images, crop_labels, crop_active = (
-                t.cpu().numpy()
-                for t in (crop_images, crop_labels, crop_active)
+        with measure('fetch'):
+            images, label_stack, active_u8 = (
+                t.cpu().numpy() for t in (images, label_stack, active_u8)
             )
+            if crop_images is not None:
+                crop_images, crop_labels, crop_active = (
+                    t.cpu().numpy()
+                    for t in (crop_images, crop_labels, crop_active)
+                )
 
     return SynthBatchResult(
         images=images,
@@ -349,7 +389,7 @@ def synthesize_stream(
     device work: a background thread keeps up to ``prefetch`` prepared
     page batches queued while the device program drains the previous one.
     Per-batch child seeds are drawn from ``rng`` up front, in order."""
-    _check_ported(False, emit_char_gaussians, region_config)
+    _check_ported(emit_char_gaussians, region_config)
     device = convert.resolve_device(device)
     prep_queue: 'queue.Queue' = queue.Queue(maxsize=max(prefetch, 1))
     seeds = [int(rng.integers(0, 2**63 - 1)) for _ in range(num_batches)]
