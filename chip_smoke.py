@@ -5,13 +5,22 @@
 
 Phases, one line each (plus detail lines):
   1. environment: torch / CUDA versions, the card's name and power limit,
-     the host libraries the shared host layers need, the font, and the
-     native geometry library;
+     the host libraries the port's host layers need, the font, and the
+     native geometry library; every module of vkit_tpu_torch is imported,
+     and the phase fails if that loaded jax or any vkit_tpu module;
   2. build: nvcc builds the CUDA kernels from vkit_tpu_torch/ops/csrc;
   3. kernels: each CUDA kernel against its plain PyTorch version on the
-     card, at the shapes the main path gives it (max abs difference, median
-     CUDA-event time of both); K4 (row_shift_window), which no path calls,
-     at the shape of the main path's RGB rows, one plane per row;
+     card (max abs difference), and its time beside the plain version's,
+     one library call's (`library_ms`, where one PyTorch call computes the
+     same function) and its bound (the bytes the call must move over the
+     card's memory rate, or its operations over the float32 rate).  K1
+     (row_shift_window_slab) and K3 (banded_line_resample) run at the
+     arguments of their first launch in one synth-640 batch, captured
+     there with their launches per batch; K1 also at starts that wrap mod
+     2048 and K3 at each rung of its tap ladder, for exactness only.  K4
+     (row_shift_window), which no path calls, runs at K1's captured rows'
+     RGB planes, one plane per row; K2 (row_shift), which only the spread
+     split routes, at a 1400-lane source cut to 700 outputs;
   4. main path: full-content 640x640 pages through synthesize_stream
      (batch 8, level 5, two 512x512 crops per page, the photometric stage
      on as by default), RandomDistortion at bench config 5's shape (32 x
@@ -35,12 +44,15 @@ Phases, one line each (plus detail lines):
      same call on the CPU; rng-consuming ops to their configs' moments.
 Then one JSON line of per-kernel results, the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Any failure raises (exit code != 0).
+`launches` in the JSON line counts the phase-4 run only, so K4 reads 0.
 Parity with the CPU assumes TF32 off for matmuls and cuDNN, as set here.
 The script needs a CUDA card and the rest of the repository beside it.
 """
+import importlib
 import importlib.metadata
 import importlib.util
 import json
+import pkgutil
 import statistics
 import string
 import subprocess
@@ -68,6 +80,13 @@ KERNEL_SOURCES = {
 # The kernels the main path runs; K4 has no caller on any path.
 MAIN_PATH_KERNELS = ('row_shift_window_slab', 'row_shift',
                      'banded_line_resample')
+# The card's published peaks (H100 SXM data sheet): device memory bytes/s,
+# float32 operations/s outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+# Why K3 has no library yardstick.
+K3_NO_LIBRARY = ('no single PyTorch call computes the two-tap hat resample '
+                 'masked to [0, taps) through the 2048-lane window')
 # Photometric ops that round an HSV / HSL intermediate to uint8.
 HSV_ROUNDING = frozenset({'color_shift', 'brightness_shift'})
 
@@ -97,12 +116,27 @@ def nvidia_smi_line() -> str:
 
 def probe_host_libraries():
     found = {}
-    for module, dist in (('jax', 'jax'), ('PIL', 'pillow'),
-                         ('attr', 'attrs'), ('scipy', 'scipy')):
+    for module, dist in (('PIL', 'pillow'), ('attr', 'attrs'),
+                         ('scipy', 'scipy')):
         check(importlib.util.find_spec(module) is not None,
               f'host library {module} is missing')
         found[module] = importlib.metadata.version(dist)
     return found
+
+
+def import_the_port() -> int:
+    """Imports every module of vkit_tpu_torch; fails if that loaded jax,
+    flax, optax or any vkit_tpu module.  Returns the module count."""
+    import vkit_tpu_torch
+
+    names = [info.name for info in pkgutil.walk_packages(
+        vkit_tpu_torch.__path__, 'vkit_tpu_torch.')]
+    for name in names:
+        importlib.import_module(name)
+    loaded = sorted(name for name in sys.modules if name.split('.')[0] in
+                    ('jax', 'jaxlib', 'flax', 'optax', 'vkit_tpu'))
+    check(not loaded, f'importing the port loaded {loaded[:8]}')
+    return len(names)
 
 
 def find_font() -> Path:
@@ -226,27 +260,30 @@ def make_planner(assets: dict, side: int):
 # ---------------------------------------------------------------------------
 
 
-def time_ms(fn, reps: int = 10) -> float:
-    """Median CUDA-event time of one call, over ``reps`` calls (after a
-    warm-up call)."""
+def time_ms(fn, reps: int = 5, inner: int = 20) -> float:
+    """CUDA-event time of one call: the median over ``reps`` windows of
+    ``inner`` back-to-back calls, each window's time over ``inner`` (after
+    a warm-up call)."""
     import torch
 
     fn()
+    torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
-def compare(name, kernel_fn, plain_fn, tol: float):
-    """Max abs difference of kernel and plain outputs, and both times,
-    measured in turns: plain, kernel, kernel, plain."""
+def check_exact(name, kernel_fn, plain_fn, tol: float):
+    """Kernel output against the plain version's; returns the max abs
+    difference and whether the two are bit-identical."""
     import torch
 
     got = kernel_fn()
@@ -254,21 +291,182 @@ def compare(name, kernel_fn, plain_fn, tol: float):
     torch.cuda.synchronize()
     check(got.shape == ref.shape, f'{name}: shape {got.shape} != {ref.shape}')
     err = float((got - ref).abs().max()) if got.numel() else 0.0
-    exact = bool(torch.equal(got, ref))
     check(err <= tol, f'{name}: max abs err {err} > {tol}')
-    del got, ref
+    return err, bool(torch.equal(got, ref))
+
+
+def bound(bytes_moved: float, operations: float = 0.0):
+    """(least ms the card could take, what bounds it): the bytes over the
+    memory rate or the float32 operations over their rate, the larger."""
+    byte_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    op_ms = operations / PEAK_F32_PER_S * 1e3
+    return (byte_ms, 'bytes') if byte_ms >= op_ms else (op_ms, 'operations')
+
+
+def compare(name, kernel_fn, plain_fn, tol: float, work, library_fn=None):
+    """Max abs difference of kernel and plain outputs, and the times of
+    kernel, plain version and library call, measured in turns (plain,
+    kernel, library, library, kernel, plain).  ``work`` is (bytes,
+    operations) of the call; the library call must equal the plain
+    version bit for bit."""
+    import torch
+
+    err, exact = check_exact(name, kernel_fn, plain_fn, tol)
+    if library_fn is not None:
+        check(torch.equal(library_fn(), plain_fn()),
+              f'{name}: the library call computes something else')
     plain_a = time_ms(plain_fn)
     kern_a = time_ms(kernel_fn)
+    lib_a = time_ms(library_fn) if library_fn is not None else None
+    lib_b = time_ms(library_fn) if library_fn is not None else None
     kern_b = time_ms(kernel_fn)
     plain_b = time_ms(plain_fn)
+    bound_ms, bound_by = bound(*work)
+    ms = statistics.mean((kern_a, kern_b))
     return {
-        'max_abs_err': err, 'bit_exact': exact,
-        'ms': statistics.mean((kern_a, kern_b)),
+        'max_abs_err': err, 'bit_exact': exact, 'ms': ms,
         'plain_ms': statistics.mean((plain_a, plain_b)),
+        'bound_ms': bound_ms, 'bound_by': bound_by,
+        'library_ms': (statistics.mean((lib_a, lib_b))
+                       if library_fn is not None else None),
+        'share': bound_ms / ms, 'bytes': work[0], 'operations': work[1],
     }
 
 
-def kernel_phase(device):
+def capture_main_path_args(device, planner, seed: int = 400, batch: int = 8,
+                           side: int = 640):
+    """Runs one synth-640 batch (level 5, two crops per page, photometric
+    stage on) with recorders around the K1 and K3 wrappers that
+    ops/warp_mxu.py and ops/warp_banded.py call.  Returns {kernel: (args,
+    kwargs) of its first launch, copied} and the batch's launches per
+    kernel.  Untimed, and outside the counted main-path run."""
+    import torch
+
+    from vkit_tpu_torch.ops import kernels as K
+    from vkit_tpu_torch.ops import warp_banded, warp_mxu
+    from vkit_tpu_torch.synth import CropConfig, synthesize_page_batch
+
+    captured = {}
+    sites = ((warp_mxu, 'row_shift_window_slab'),
+             (warp_banded, 'banded_line_resample'))
+    originals = [getattr(module, name) for module, name in sites]
+
+    def recorder(name, real):
+        def record(*args, **kwargs):
+            if name not in captured:
+                captured[name] = (
+                    [a.clone() if isinstance(a, torch.Tensor) else a
+                     for a in args], dict(kwargs))
+            return real(*args, **kwargs)
+        return record
+
+    rng = np.random.default_rng(seed)
+    crop = CropConfig(core_size=side * 4 // 5, num_per_page=2)
+    before = dict(K.LAUNCHES)
+    for attempt in range(5):
+        pages = planner.prepare_batch(batch, rng)
+        for (module, name), real in zip(sites, originals):
+            setattr(module, name, recorder(name, real))
+        try:
+            synthesize_page_batch(pages, 5, rng, crop_config=crop,
+                                  keep_on_device=True, device=device)
+            sync(device)
+        finally:
+            for (module, name), real in zip(sites, originals):
+                setattr(module, name, real)
+        launches = {name: K.LAUNCHES[name] - before[name]
+                    for name in ('row_shift_window_slab',
+                                 'banded_line_resample')}
+        if len(captured) == len(sites):
+            return captured, launches
+        log(f'    capture batch {attempt}: launches {launches}; '
+            'drawing another batch')
+        captured.clear()
+        before = dict(K.LAUNCHES)
+    raise RuntimeError('chip_smoke: no synth-640 batch launched K1 and K3')
+
+
+def window_read_floats(starts, width: int, out_width: int) -> int:
+    """Source floats per channel that K1 / K4 must read: each row's window
+    of 2048 lanes, starting at lane starts mod 2048, overlaps the row in
+    one interval [lo, hi)."""
+    import torch
+
+    from vkit_tpu_torch.ops.kernels import WINDOW
+
+    a = starts.to(torch.int64) & (WINDOW - 1)
+    inside = a < width
+    lo = torch.where(inside, a, 0)
+    hi = torch.where(inside, (a + out_width).clamp(max=width),
+                     (a + out_width - WINDOW).clamp(0, width))
+    return int((hi - lo).clamp(min=0).sum())
+
+
+def window_gather_library(x, starts, out_width: int, border: float):
+    """K1 / K4's library yardstick: one torch.gather over the source padded
+    with one border column, at an index computed beforehand."""
+    import torch
+    import torch.nn.functional as F
+
+    from vkit_tpu_torch.ops.kernels import WINDOW
+
+    width = x.shape[-1]
+    x_pad = F.pad(x, (0, 1), value=border)
+    j = torch.arange(out_width, device=x.device)
+    k = torch.remainder(starts.to(torch.int64)[..., None] + j, WINDOW)
+    idx = torch.where(k < width, k, width)
+    if x.dim() == 4:
+        idx = idx[:, :, None, :].expand(-1, -1, x.shape[2], -1)
+    idx = idx.contiguous()
+    return lambda: torch.gather(x_pad, x.dim() - 1, idx)
+
+
+def window_work(x, starts, out_width: int):
+    """(bytes, operations) of one K1 / K4 call: the source floats the
+    windows overlap, the starts and the output, each once; no arithmetic
+    on the data."""
+    channels = x.shape[2] if x.dim() == 4 else 1
+    rows = starts.numel()
+    floats = (channels * window_read_floats(starts, x.shape[-1], out_width)
+              + rows + rows * channels * out_width)
+    return 4.0 * floats, 0.0
+
+
+def banded_work(x, base, pos, taps: int):
+    """(bytes, operations) of one K3 call: the source floats that carry
+    weight in some output (the two taps floor(u), floor(u) + 1 inside [0,
+    taps) and inside the row), base, pos and the output, each once; the
+    hat weights (12 operations per (line, output)) and the blend (3 per
+    channel)."""
+    import torch
+
+    from vkit_tpu_torch.ops.kernels import ROW_OFFSET, WINDOW
+
+    n, lines, channels, width = x.shape
+    jp = pos.shape[-1]
+    j = torch.arange(jp, device=x.device)
+    b = base.repeat_interleave(8, dim=1)[:, :lines].repeat_interleave(
+        128, dim=2).to(torch.int64)
+    u = pos - (b.to(torch.float32) + (j % 128).to(torch.float32))
+    t0f = torch.floor(u)
+    t0 = t0f.to(torch.int64)
+    needed = torch.zeros((n * lines, width + 1), dtype=torch.uint8,
+                         device=x.device)
+    for t, tap in ((t0, t0f), (t0 + 1, t0f + 1.0)):
+        live = (t >= 0) & (t < taps) & ((u - tap).abs() < 1.0)
+        col = torch.remainder(b + j % 128 + t + ROW_OFFSET, WINDOW) - ROW_OFFSET
+        ok = live & (col >= 0) & (col < width)
+        idx = torch.where(ok, col, width).reshape(n * lines, jp)
+        needed.scatter_(1, idx, 1)
+    reads = int(needed[:, :width].sum())
+    floats = (channels * reads + base.numel() + pos.numel()
+              + n * lines * channels * jp)
+    return 4.0 * floats, float(n * lines * jp * (12 + 3 * channels))
+
+
+def kernel_phase(device, captured):
+    """Each kernel against its plain version; K1 and K3 timed at the
+    captured main-path arguments."""
     import torch
     import torch.nn.functional as F
 
@@ -282,22 +480,48 @@ def kernel_phase(device):
     gen = np.random.default_rng(1)
     results = {}
 
-    # K1 at the synth stack's shape: (8, 640, 7, 640) -> 512 per row.
-    b, l, c, w, ow = 8, 640, 7, 640, 512
-    x = torch.from_numpy(
-        gen.random((b, l, c, w), dtype=np.float32) * 255
-    ).to(device)
-    bound = K.WINDOW - w - ow
-    starts = torch.from_numpy(
-        gen.integers(-bound, bound + 1, (b, l)).astype(np.int32)
-    ).to(device)
+    # K1 at its first launch in a synth-640 batch.
+    (x, starts, ow), kwargs = captured['row_shift_window_slab']
+    border = float(kwargs.get('border_value', 0.0))
     results['row_shift_window_slab'] = compare(
         'row_shift_window_slab',
-        lambda: K.row_shift_window_slab(x, starts, ow, 255.0),
-        lambda: K.row_shift_window_slab_plain(x, starts, ow, 255.0),
-        tol=0.0,
+        lambda: K.row_shift_window_slab(x, starts, ow, border),
+        lambda: K.row_shift_window_slab_plain(x, starts, ow, border),
+        tol=0.0, work=window_work(x, starts, ow),
+        library_fn=window_gather_library(x, starts, ow, border),
     )
-    del x, starts
+    results['row_shift_window_slab']['shape'] = (
+        f'{tuple(x.shape)} -> {ow}')
+    # Exactness only: starts anywhere in +-896, most windows mostly border,
+    # some wrapping mod 2048 back into the row.
+    span = K.WINDOW - x.shape[-1] - ow
+    wrap = torch.from_numpy(
+        gen.integers(-span, span + 1, tuple(starts.shape)).astype(np.int32)
+    ).to(device)
+    _, exact = check_exact(
+        'row_shift_window_slab wrap',
+        lambda: K.row_shift_window_slab(x, wrap, ow, border),
+        lambda: K.row_shift_window_slab_plain(x, wrap, ow, border), tol=0.0)
+    check(exact, 'row_shift_window_slab wrap: not bit-exact')
+
+    # K4 at the captured rows' RGB planes, one plane per row.
+    x4 = x[:, :, :3].reshape(x.shape[0], x.shape[1] * 3, x.shape[3])
+    s4 = starts.repeat_interleave(3, dim=1).contiguous()
+    results['row_shift_window'] = compare(
+        'row_shift_window',
+        lambda: K.row_shift_window(x4, s4, ow, border),
+        lambda: K.row_shift_window_plain(x4, s4, ow, border),
+        tol=0.0, work=window_work(x4, s4, ow),
+        library_fn=window_gather_library(x4, s4, ow, border),
+    )
+    results['row_shift_window']['shape'] = f'{tuple(x4.shape)} -> {ow}'
+    wrap4 = wrap.repeat_interleave(3, dim=1).contiguous()
+    _, exact = check_exact(
+        'row_shift_window wrap',
+        lambda: K.row_shift_window(x4, wrap4, ow, border),
+        lambda: K.row_shift_window_plain(x4, wrap4, ow, border), tol=0.0)
+    check(exact, 'row_shift_window wrap: not bit-exact')
+    del x4, s4, wrap, wrap4
 
     # K2 through apply_line_resample: a 1400-lane source resampled to 700
     # outputs fails the 2048-lane window (m_in + m_shift > 2048).
@@ -309,74 +533,71 @@ def kernel_phase(device):
     check(m_in + statics.m_shift > K.WINDOW,
           f'K2 statics {statics} fit the window')
     plan_t = convert.line_resample_plan(plan, device)
-    x = torch.from_numpy(
+    xs = torch.from_numpy(
         gen.random((n, lines, c, m_in), dtype=np.float32) * 255
     ).to(device)
     before = K.LAUNCHES['row_shift']
-    out = apply_line_resample(x, plan_t, statics, border_value=255.0)
+    out = apply_line_resample(xs, plan_t, statics, border_value=255.0)
     torch.cuda.synchronize()
     check(K.LAUNCHES['row_shift'] == before + 1,
           'apply_line_resample did not take the row_shift route')
     check(bool(torch.isfinite(out).all()), 'apply_line_resample not finite')
     del out
-    x_p = F.pad(x, (statics.pad_lo, statics.m_padded - m_in - statics.pad_lo),
+    x_p = F.pad(xs, (statics.pad_lo,
+                     statics.m_padded - m_in - statics.pad_lo),
                 value=255.0).reshape(n, lines * c, statics.m_padded)
     rows = plan_t.starts[:, :, None].expand(n, lines, c).reshape(
         n, lines * c).to(torch.int32).contiguous()
+    del xs
+    m_shift, m_padded = statics.m_shift, statics.m_padded
+    j = torch.arange(m_shift, device=device)
+    first = rows.to(torch.int64).clamp(0, m_padded - 1)
+    last = (rows.to(torch.int64) + m_shift - 1).clamp(0, m_padded - 1)
+    k2_floats = (int((last - first + 1).sum()) + rows.numel()
+                 + rows.numel() * m_shift)
+    idx2 = (rows.to(torch.int64)[..., None] + j).clamp(0, m_padded - 1)
     results['row_shift'] = compare(
         'row_shift',
-        lambda: K.row_shift(x_p, rows, statics.m_shift),
-        lambda: K.row_shift_plain(x_p, rows, statics.m_shift),
-        tol=0.0,
+        lambda: K.row_shift(x_p, rows, m_shift),
+        lambda: K.row_shift_plain(x_p, rows, m_shift),
+        tol=0.0, work=(4.0 * k2_floats, 0.0),
+        library_fn=lambda: torch.gather(x_p, 2, idx2),
     )
+    results['row_shift']['shape'] = f'{tuple(x_p.shape)} -> {m_shift}'
     log(f'    row_shift statics: {statics}')
-    del x, x_p, rows
+    del x_p, rows, idx2
 
-    # K3 at (8, 640, 7, 640) -> JP 768, each rung of the tap ladder.
-    n, lines, c, w, jp = 8, 640, 7, 640, 768
-    x = torch.from_numpy(
-        gen.random((n, lines, c, w), dtype=np.float32) * 255
-    ).to(device)
+    # K3 at its first launch in a synth-640 batch.
+    (xb, base, pos, taps), kwargs = captured['banded_line_resample']
+    border = float(kwargs.get('border_value', 0.0))
+    results['banded_line_resample'] = compare(
+        'banded_line_resample',
+        lambda: K.banded_line_resample(xb, base, pos, taps, border),
+        lambda: K.banded_line_resample_plain(xb, base, pos, taps, border),
+        tol=1e-3, work=banded_work(xb, base, pos, taps),
+    )
+    results['banded_line_resample']['shape'] = (
+        f'{tuple(xb.shape)} -> {pos.shape[-1]}, taps {taps}')
+    # Exactness only: each rung of the tap ladder at random bases.
+    n, lines = xb.shape[:2]
+    jp = 768
     groups = -(-lines // 8)
-    per_taps = {}
-    for taps in (32, 64, 128):
+    for rung in (32, 64, 128):
         base_np = gen.integers(-500, 1281, (n, groups, jp // 128))
         full = np.repeat(np.repeat(base_np, 8, 1)[:, :lines], 128, 2)
         pos_np = (full + np.arange(jp) % 128
-                  + gen.uniform(-2, taps + 2, (n, lines, jp)))
-        base = torch.from_numpy(base_np.astype(np.int32)).to(device)
-        pos = torch.from_numpy(pos_np.astype(np.float32)).to(device)
-        per_taps[taps] = compare(
-            f'banded_line_resample taps={taps}',
-            lambda: K.banded_line_resample(x, base, pos, taps, 255.0),
-            lambda: K.banded_line_resample_plain(x, base, pos, taps, 255.0),
-            tol=1e-3,
-        )
-        log(f'    banded_line_resample taps={taps}: {per_taps[taps]}')
-    results['banded_line_resample'] = {
-        'max_abs_err': max(r['max_abs_err'] for r in per_taps.values()),
-        'bit_exact': all(r['bit_exact'] for r in per_taps.values()),
-        'ms': per_taps[128]['ms'],
-        'plain_ms': per_taps[128]['plain_ms'],
-    }
-    del x
-
-    # K4 at the main path's RGB rows, one plane per row: 8 x 640 rows x 3.
-    b, l, w, ow = 8, 1920, 640, 512
-    x = torch.from_numpy(
-        gen.random((b, l, w), dtype=np.float32) * 255
-    ).to(device)
-    bound = K.WINDOW - w - ow
-    starts = torch.from_numpy(
-        gen.integers(-bound, bound + 1, (b, l)).astype(np.int32)
-    ).to(device)
-    results['row_shift_window'] = compare(
-        'row_shift_window',
-        lambda: K.row_shift_window(x, starts, ow, 255.0),
-        lambda: K.row_shift_window_plain(x, starts, ow, 255.0),
-        tol=0.0,
-    )
-    del x, starts
+                  + gen.uniform(-2, rung + 2, (n, lines, jp)))
+        base_r = torch.from_numpy(base_np.astype(np.int32)).to(device)
+        pos_r = torch.from_numpy(pos_np.astype(np.float32)).to(device)
+        err, _ = check_exact(
+            f'banded_line_resample taps={rung}',
+            lambda: K.banded_line_resample(xb, base_r, pos_r, rung, 255.0),
+            lambda: K.banded_line_resample_plain(xb, base_r, pos_r, rung,
+                                                 255.0),
+            tol=1e-3)
+        results['banded_line_resample']['max_abs_err'] = max(
+            results['banded_line_resample']['max_abs_err'], err)
+        log(f'    banded_line_resample taps={rung}: max_abs_err {err}')
     torch.cuda.empty_cache()
     return results
 
@@ -903,7 +1124,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    import vkit_tpu_torch  # noqa: F401 - pins jax to the CPU first
+    modules = import_the_port()
     from vkit_tpu_torch.host import native_geometry_loaded
     from vkit_tpu_torch.ops import kernels as K
 
@@ -919,6 +1140,7 @@ def main() -> int:
     log(f'[1 environment] torch {torch.__version__} cuda {torch.version.cuda} '
         f'| {card} | host libs {libs} | font {font.name} '
         f'| native geometry {native_geometry_loaded()} '
+        f'| {modules} port modules imported, no jax, no vkit_tpu '
         f'| allow_tf32 {torch.backends.cuda.matmul.allow_tf32}')
 
     # 2. Build.
@@ -928,19 +1150,27 @@ def main() -> int:
     log(f'[2 build] {lib_path.name}: nvcc {K.BUILD_SECONDS} s, '
         f'load {time.perf_counter() - begin:.3f} s')
 
-    # 3. Kernels against their plain versions.
-    K.reset_launch_counts()
-    kernels = kernel_phase(device)
-    k4_launches = K.LAUNCHES['row_shift_window']
-    check(k4_launches >= 1, 'row_shift_window never launched')
-    for name, res in kernels.items():
-        log(f'[3 kernel] {name}: max_abs_err {res["max_abs_err"]} '
-            f'bit_exact {res["bit_exact"]} ms {res["ms"]:.4f} '
-            f'plain_ms {res["plain_ms"]:.4f} | {card}')
-
-    # 4. Main path.
+    # 3. Kernels against their plain versions, K1 and K3 at the arguments
+    # of their first launch in a synth-640 batch.
     assets = build_assets(font)
     planner = make_planner(assets, 640)
+    captured, per_batch = capture_main_path_args(device, planner)
+    log(f'[3 capture] launches in one synth-640 batch (8 pages, level 5): '
+        f'row_shift_window_slab {per_batch["row_shift_window_slab"]}, '
+        f'banded_line_resample {per_batch["banded_line_resample"]}')
+    kernels = kernel_phase(device, captured)
+    del captured
+    for name, res in kernels.items():
+        log(f'[3 kernel] {name} at {res["shape"]}: max_abs_err '
+            f'{res["max_abs_err"]} bit_exact {res["bit_exact"]} ms '
+            f'{res["ms"]:.4f} plain_ms {res["plain_ms"]:.4f} library_ms '
+            + (f'{res["library_ms"]:.4f}' if res['library_ms'] is not None
+               else f'none ({K3_NO_LIBRARY})')
+            + f' | bound {res["bound_ms"]:.4f} ms by {res["bound_by"]} '
+            f'({res["bytes"] / 1e6:.1f} MB, {res["operations"]:.3g} ops), '
+            f'share {res["share"]:.3f} | {card}')
+
+    # 4. Main path.
     main_path(device, planner, seed=100)           # warm-up, not counted
     launches = rates = None
     for seed in range(101, 106):
@@ -952,7 +1182,6 @@ def main() -> int:
         log(f'    seed {seed}: launches {launches}; drawing another seed')
     check(all(launches[name] for name in MAIN_PATH_KERNELS),
           f'a kernel never launched: {launches}')
-    launches['row_shift_window'] = k4_launches
     small = make_planner(assets, 320)
     img_err, lab_err = small_batch_agreement(device, small)
     photo_err = photometric_agreement(device, small)
@@ -992,6 +1221,8 @@ def main() -> int:
             'launches': launches[name],
             'max_abs_err': res['max_abs_err'],
             'ms': res['ms'], 'plain_ms': res['plain_ms'],
+            'bound_ms': res['bound_ms'], 'bound_by': res['bound_by'],
+            'library_ms': res['library_ms'],
         }
         for name, res in kernels.items()
     ]}), flush=True)

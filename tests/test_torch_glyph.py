@@ -1,23 +1,30 @@
 """The port's glyph and overlay compositor (vkit_tpu_torch/ops/glyph.py) and
 atlas tiles (vkit_tpu_torch/engine/font/atlas.py) against vkit_tpu on the
-same tables."""
+same tables; text-line layouts and atlases come from each package's own
+font code (checked equal first)."""
+import attr
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from tests.engine.fixtures import build_font_collection
-from vkit_tpu.engine.font import FontEngineRunConfig
-from vkit_tpu.engine.font.atlas import (
-    AtlasPack,
-    get_glyph_atlas,
-    plan_text_line_layout,
-)
+from tests.test_torch_host import assert_same_value
+from vkit_tpu.engine.font import FontEngineRunConfig as JaxRunConfig
+from vkit_tpu.engine.font.atlas import AtlasPack as JaxAtlasPack
+from vkit_tpu.engine.font.atlas import get_glyph_atlas as jax_get_glyph_atlas
 from vkit_tpu.engine.font.atlas import pack_placements as jax_pack_placements
+from vkit_tpu.engine.font.atlas import (
+    plan_text_line_layout as jax_plan_text_line_layout,
+)
 from vkit_tpu.ops import glyph as JG
+from vkit_tpu_torch.engine import font as TF
 from vkit_tpu_torch.engine.font.atlas import (
+    AtlasPack,
     device_tiles_and_resolver,
+    get_glyph_atlas,
     pack_placements,
+    plan_text_line_layout,
 )
 from vkit_tpu_torch.ops import glyph as TG
 
@@ -117,27 +124,61 @@ def test_invalid_rows_leave_canvas_untouched():
     assert torch.equal(out, canvas)
 
 
-def test_pack_placements_matches_jax_composite():
-    """Text lines through both atlas paths: the port resolves ids with the
-    host tile array, the reference with its device slabs; the composited
-    pages agree."""
-    variant = build_font_collection().font_metas[0].get_font_variant(0)
-    pack = AtlasPack()
+def _port_font_meta(meta):
+    """vkit_tpu's FontMeta rebuilt from the port's own font classes."""
+    infos = meta.font_glyph_info_collection.font_glyph_infos
+    return TF.FontMeta(
+        name=meta.name,
+        mode=TF.FontMode(meta.mode.value),
+        char_to_tags=meta.char_to_tags,
+        font_files=meta.font_files,
+        font_glyph_info_collection=TF.FontGlyphInfoCollection(
+            font_glyph_infos=[TF.FontGlyphInfo(**attr.asdict(info))
+                              for info in infos],
+        ),
+    )
+
+
+def _line_entries(meta, run_config_cls, plan, get_atlas):
+    """Three text lines laid out and atlased by one package's font code."""
+    variant = meta.get_font_variant(0)
     entries = []
     for idx, (text, up, left) in enumerate([
         ('Hello World', 4, 6), ('pack my box', 40, 30), ('0123 jugs', 70, 2),
     ]):
-        run_config = FontEngineRunConfig(
+        run_config = run_config_cls(
             height=28, width=300, chars=list(text), font_variant=variant,
         )
-        layout = plan_text_line_layout(run_config, np.random.default_rng(3))
+        layout = plan(run_config, np.random.default_rng(3))
         assert layout is not None
         entries.append((layout, (up, left), idx % 2, (20, 30, 180),
-                        get_glyph_atlas(run_config)))
+                        get_atlas(run_config)))
+    return entries
+
+
+def test_pack_placements_matches_jax_composite():
+    """Text lines through both atlas paths, each package laying them out
+    with its own font code: the layouts and atlas tiles are equal; the port
+    resolves ids with the host tile array, the reference with its device
+    slabs; the composited pages agree."""
+    meta = build_font_collection().font_metas[0]
+    ref_entries = _line_entries(meta, JaxRunConfig,
+                                jax_plan_text_line_layout,
+                                jax_get_glyph_atlas)
+    entries = _line_entries(_port_font_meta(meta), TF.FontEngineRunConfig,
+                            plan_text_line_layout, get_glyph_atlas)
+    for (ref_layout, *ref_rest), (layout, *rest) in zip(ref_entries,
+                                                        entries):
+        assert_same_value(ref_layout.char_boxes, layout.char_boxes,
+                          'char_boxes')
+        assert list(ref_layout.glyph_ids) == list(layout.glyph_ids)
+        assert ref_rest[:3] == rest[:3]
+        np.testing.assert_array_equal(ref_rest[3].tiles, rest[3].tiles)
     canvas = np.full((2, 110, 320, 3), 230, dtype=np.uint8)
 
-    ref_pl, ref_tiles, ref_tile = jax_pack_placements(entries, pack,
-                                                      bucket=64)
+    ref_pl, ref_tiles, ref_tile = jax_pack_placements(
+        ref_entries, JaxAtlasPack(), bucket=64)
+    pack = AtlasPack()
     ref = np.asarray(JG.composite_glyphs(jnp.asarray(canvas), ref_tiles,
                                          ref_pl, out_tile=ref_tile))
     placements, tiles, out_tile = pack_placements(entries, pack, bucket=64)

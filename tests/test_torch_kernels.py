@@ -36,6 +36,37 @@ def _slab_case(seed, b=2, l=24, c=3, w=200, ow=160):
     return x, starts, ow
 
 
+def _slab_starts(kind, rng, b, l, w, ow):
+    """K1 starts of one kind: the main path's (each window on the row's
+    content, a few lanes over either edge), windows that wrap mod 2048 back
+    into the row, or any int32."""
+    if kind == 'main_path':
+        return rng.integers(-24, w - ow + 24, (b, l)).astype(np.int32)
+    if kind == 'wrap':
+        lap = rng.integers(-3, 4, (b, l)) * K.WINDOW
+        return (lap + rng.integers(K.WINDOW - ow, K.WINDOW + w, (b, l))
+                ).astype(np.int32)
+    return rng.integers(np.iinfo(np.int32).min, np.iinfo(np.int32).max,
+                        (b, l), dtype=np.int64).astype(np.int32)
+
+
+# (kind, channels, W, out_w): the main path's 7 channels of 640 -> 512,
+# wrapping and arbitrary starts, and widths that are not multiples of 4.
+SLAB_CASES = [
+    ('main_path', 7, 640, 512),
+    ('wrap', 7, 640, 512),
+    ('any', 3, 640, 512),
+    ('main_path', 5, 637, 509),
+    ('wrap', 2, 637, 509),
+]
+
+
+def _slab_kind_case(kind, c, w, ow, seed=0, b=2, l=12):
+    rng = np.random.default_rng(seed)
+    x = (rng.random((b, l, c, w), dtype=np.float32) * 255).astype(np.float32)
+    return x, _slab_starts(kind, rng, b, l, w, ow), ow
+
+
 def _window_case(seed, b=2, l=40, w=300, ow=256):
     """K4's rows: starts across the whole window, some inside the row."""
     rng = np.random.default_rng(seed)
@@ -73,6 +104,31 @@ def test_row_shift_window_slab_bit_exact(seed, border):
     got = K.row_shift_window_slab(
         torch.from_numpy(x), torch.from_numpy(starts), ow, border
     ).numpy()
+    assert np.array_equal(ref, got)
+
+
+@pytest.mark.parametrize('kind,c,w,ow', SLAB_CASES)
+def test_row_shift_window_slab_cases_bit_exact(kind, c, w, ow):
+    x, starts, ow = _slab_kind_case(kind, c, w, ow)
+    ref = np.asarray(PK.row_shift_window_slab(
+        jnp.asarray(x), jnp.asarray(starts), ow, border_value=255.0
+    ))
+    got = K.row_shift_window_slab(
+        torch.from_numpy(x), torch.from_numpy(starts), ow, 255.0
+    ).numpy()
+    assert np.array_equal(ref, got)
+
+
+@pytest.mark.parametrize('kind', ['main_path', 'wrap'])
+def test_row_shift_window_odd_width_bit_exact(kind):
+    x, starts, ow = _slab_kind_case(kind, 1, 637, 509, seed=3)
+    x = x[:, :, 0]
+    ref = np.asarray(PK.row_shift_window(
+        jnp.asarray(x), jnp.asarray(starts), ow, border_value=255.0,
+        interpret=True,
+    ))
+    got = K.row_shift_window(torch.from_numpy(x), torch.from_numpy(starts),
+                             ow, 255.0).numpy()
     assert np.array_equal(ref, got)
 
 
@@ -179,6 +235,27 @@ def test_cuda_row_shift_window_matches_plain(cuda_device):
     got = K.row_shift_window(xt, st, ow, 255.0)
     assert K.LAUNCHES['row_shift_window'] == before + 1
     assert torch.equal(got, K.row_shift_window_plain(xt, st, ow, 255.0))
+
+
+@pytest.mark.parametrize('kind,c,w,ow', SLAB_CASES)
+def test_cuda_row_shift_window_slab_cases(cuda_device, kind, c, w, ow):
+    x, starts, ow = _slab_kind_case(kind, c, w, ow, seed=7, b=3, l=50)
+    xt = torch.from_numpy(x).to(cuda_device)
+    st = torch.from_numpy(starts).to(cuda_device)
+    before = K.LAUNCHES['row_shift_window_slab']
+    got = K.row_shift_window_slab(xt, st, ow, 255.0)
+    assert K.LAUNCHES['row_shift_window_slab'] == before + 1
+    assert torch.equal(got, K.row_shift_window_slab_plain(xt, st, ow, 255.0))
+    # A source that starts off a 16-byte boundary (a view one float in).
+    xo = torch.empty(x.size + 1, dtype=torch.float32, device=cuda_device)
+    xo = xo[1:].view(x.shape)
+    xo.copy_(xt)
+    assert torch.equal(K.row_shift_window_slab(xo, st, ow, 255.0),
+                       K.row_shift_window_slab_plain(xt, st, ow, 255.0))
+    # K4: the same device code with one channel.
+    x1, s1 = xt[:, :, 0].contiguous(), st
+    assert torch.equal(K.row_shift_window(x1, s1, ow, 255.0),
+                       K.row_shift_window_plain(x1, s1, ow, 255.0))
 
 
 def test_cuda_kernels_match_plain(cuda_device):

@@ -20,20 +20,20 @@ from vkit_tpu.mechanism.batched import (
     _COMPILED_CATALOG,
     batch_distort_images_compiled,
 )
-from vkit_tpu.mechanism.batched_random import _static_signature
+from tests.test_torch_host import assert_same_draws, assert_same_value
+from vkit_tpu.mechanism.batched_random import (
+    _static_signature as jax_static_signature,
+)
 from vkit_tpu.mechanism.batched_random import (
     batch_random_photometric_distort as jax_photometric,
 )
 from vkit_tpu.mechanism.distortion_policy.random_distortion import (
-    random_distortion_factory,
+    random_distortion_factory as jax_factory,
 )
 from vkit_tpu.mechanism.photometric_program import (
     apply_mega_round as jax_mega_round,
 )
-from vkit_tpu.mechanism.photometric_program import (
-    build_round_params,
-    mega_covers,
-)
+from vkit_tpu.mechanism.photometric_program import build_round_params
 from vkit_tpu.ops.color import equalize_hist_batch as jax_equalize
 from vkit_tpu.ops.effect import (
     _CHROMA_QTABLE,
@@ -48,19 +48,28 @@ from vkit_tpu_torch.mechanism.batched import (
     batch_distort_members,
 )
 from vkit_tpu_torch.mechanism.batched_random import (
+    _static_signature,
     batch_random_photometric_distort,
     sample_photometric_sequences,
+)
+from vkit_tpu_torch.mechanism.distortion_policy.random_distortion import (
+    random_distortion_factory,
 )
 from vkit_tpu_torch.mechanism.photometric_program import (
     MEGA_NAMES,
     apply_mega_round,
+    mega_covers,
 )
 from vkit_tpu_torch.ops.blur import filter2d
 from vkit_tpu_torch.ops.color import equalize_hist_batch
-from vkit_tpu_torch.ops.jpeg_exact import jpeg_roundtrip_exact
+from vkit_tpu_torch.ops.jpeg_exact import jpeg_roundtrip_exact_torch
 
 torch.set_num_threads(1)
 
+# Each package's photometric stage: the reference half draws from
+# vkit_tpu's policies, the port's half from the port's own.
+JAX_STAGE = jax_factory.create_photometric_stage_config()
+JAX_POLICIES = {p.name: p for p in JAX_STAGE.distortion_policies}
 STAGE = random_distortion_factory.create_photometric_stage_config()
 POLICIES = {p.name: p for p in STAGE.distortion_policies}
 HSV_ROUNDING = frozenset({'color_shift', 'brightness_shift'})
@@ -129,28 +138,49 @@ def assert_same_distribution(name, got, want, images, configs):
             raise AssertionError(f'no distribution check for {name}')
 
 
-def _configs(name, rng, n=3, shape=SHAPE[1:3]):
-    """Policy-sampled level-5 configs that can share one batched apply."""
-    configs = [POLICIES[name].sample_config(5, shape, rng) for _ in range(n)]
-    sig0 = _static_signature(name, configs[0])
-    configs = [c if _static_signature(name, c) == sig0 else configs[0]
+def _package_configs(policies, static_signature, name, rng, n, shape):
+    configs = [policies[name].sample_config(5, shape, rng) for _ in range(n)]
+    sig0 = static_signature(name, configs[0])
+    configs = [c if static_signature(name, c) == sig0 else configs[0]
                for c in configs]
     if name in ('pixelation', 'zoom_in_blur'):
         configs = [configs[0]] * n
     return configs
 
 
+def _configs(name, seed, n=3, shape=SHAPE[1:3]):
+    """Policy-sampled level-5 configs that can share one batched apply,
+    drawn by each package from its own policies with the same seed:
+    (vkit_tpu's, the port's), checked equal."""
+    ref = _package_configs(JAX_POLICIES, jax_static_signature, name,
+                           np.random.default_rng(seed), n, shape)
+    got = _package_configs(POLICIES, _static_signature, name,
+                           np.random.default_rng(seed), n, shape)
+    assert_same_value(ref, got, f'{name} configs')
+    return ref, got
+
+
+def _sample_pair(name, rng_seed, shape):
+    """One config of ``name`` from each package's policy, checked equal."""
+    ref = JAX_POLICIES[name].sample_config(5, shape,
+                                           np.random.default_rng(rng_seed))
+    got = POLICIES[name].sample_config(5, shape,
+                                       np.random.default_rng(rng_seed))
+    assert_same_value(ref, got, name)
+    return ref, got
+
+
 @pytest.mark.parametrize('name', sorted(_COMPILED_CATALOG))
 def test_catalog_matches_jax(name):
     images = _images(0)
-    configs = _configs(name, np.random.default_rng(11))
+    ref_configs, configs = _configs(name, 11)
     try:
         want = np.asarray(batch_distort_images_compiled(
-            name, configs, jnp.asarray(images), seed=7))
+            name, ref_configs, jnp.asarray(images), seed=7))
     except AssertionError:
-        configs = [configs[0]] * 3
+        ref_configs, configs = [ref_configs[0]] * 3, [configs[0]] * 3
         want = np.asarray(batch_distort_images_compiled(
-            name, configs, jnp.asarray(images), seed=7))
+            name, ref_configs, jnp.asarray(images), seed=7))
     got_t = batch_distort_images(name, configs, torch.from_numpy(images),
                                  seed=7)
     assert got_t.dtype == torch.uint8
@@ -180,10 +210,12 @@ def test_glass_blur_gather_branch_matches_jax():
     """delta > 2 takes the host-permutation branch: the permutation comes
     from the seed on both sides, so only the blur before it differs."""
     images = _images(1)
-    configs = [attr.evolve(c, delta=3, loop=2)
-               for c in _configs('glass_blur', np.random.default_rng(2))]
+    ref_configs, configs = (
+        [attr.evolve(c, delta=3, loop=2) for c in side]
+        for side in _configs('glass_blur', 2)
+    )
     want = np.asarray(batch_distort_images_compiled(
-        'glass_blur', configs, jnp.asarray(images), seed=5))
+        'glass_blur', ref_configs, jnp.asarray(images), seed=5))
     got = batch_distort_images('glass_blur', configs,
                                torch.from_numpy(images), seed=5).numpy()
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
@@ -192,8 +224,8 @@ def test_glass_blur_gather_branch_matches_jax():
 MEGA_SHAPE = (3, 48, 64, 3)
 
 
-def _mega_pair(images, members, seed):
-    sel, params = build_round_params(images.shape[0], members)
+def _mega_pair(images, ref_members, members, seed):
+    sel, params = build_round_params(images.shape[0], ref_members)
     want = np.asarray(jax_mega_round(
         jnp.asarray(images), jnp.asarray(sel),
         {k: jnp.asarray(v) for k, v in params.items()}, np.uint32(seed),
@@ -205,8 +237,9 @@ def _mega_pair(images, members, seed):
 @pytest.mark.parametrize('name', sorted(MEGA_NAMES))
 def test_mega_round_matches_jax(name):
     images = _images(0, MEGA_SHAPE)
-    configs = _configs(name, np.random.default_rng(3), shape=MEGA_SHAPE[1:3])
-    got, want = _mega_pair(images, {name: list(enumerate(configs))}, 11)
+    ref_configs, configs = _configs(name, 3, shape=MEGA_SHAPE[1:3])
+    got, want = _mega_pair(images, {name: list(enumerate(ref_configs))},
+                           {name: list(enumerate(configs))}, 11)
     if name in RNG_CONSUMING:
         assert_same_distribution(name, got, want, images, configs)
     else:
@@ -216,19 +249,21 @@ def test_mega_round_matches_jax(name):
 def test_mega_round_passthrough():
     """No draw (sel = -1 everywhere): the round is an exact identity."""
     images = _images(1, (2, 32, 32, 3))
-    got, want = _mega_pair(images, {}, 0)
+    got, want = _mega_pair(images, {}, {}, 0)
     np.testing.assert_array_equal(got, images)
     np.testing.assert_array_equal(want, images)
 
 
 def test_mega_round_mixed():
     """Different ops per sample in one round, one sample passing through."""
-    rng = np.random.default_rng(5)
     images = _images(2, (4, 40, 40, 3))
     names = ['complement', 'posterization', 'gaussian_blur']
-    members = {name: [(i, POLICIES[name].sample_config(5, (40, 40), rng))]
-               for i, name in enumerate(names)}
-    got, want = _mega_pair(images, members, 9)
+    pairs = {name: _sample_pair(name, 5 + i, (40, 40))
+             for i, name in enumerate(names)}
+    got, want = _mega_pair(
+        images,
+        {name: [(i, pairs[name][0])] for i, name in enumerate(names)},
+        {name: [(i, pairs[name][1])] for i, name in enumerate(names)}, 9)
     assert_deterministic_close(names, got, want)
     np.testing.assert_array_equal(got[3], images[3])
 
@@ -257,9 +292,9 @@ def test_jpeg_roundtrip_bit_exact(shape):
             jnp.asarray(img), jnp.asarray(lq), jnp.asarray(cq)))
         for img, lq, cq in zip(images, luma, chroma)
     ])
-    got = jpeg_roundtrip_exact(torch.from_numpy(images),
-                               torch.from_numpy(luma),
-                               torch.from_numpy(chroma)).numpy()
+    got = jpeg_roundtrip_exact_torch(torch.from_numpy(images),
+                                     torch.from_numpy(luma),
+                                     torch.from_numpy(chroma)).numpy()
     np.testing.assert_array_equal(got, want)
 
 
@@ -273,25 +308,26 @@ def test_equalize_hist_matches_jax():
     np.testing.assert_array_equal(got[1], planes[1])
 
 
-def _deterministic_stage():
-    keep = [i for i, p in enumerate(STAGE.distortion_policies)
+def _deterministic_stage(stage):
+    keep = [i for i, p in enumerate(stage.distortion_policies)
             if p.name not in RNG_CONSUMING]
     return attr.evolve(
-        STAGE,
-        distortion_policies=[STAGE.distortion_policies[i] for i in keep],
-        distortion_policy_weights=[STAGE.distortion_policy_weights[i]
+        stage,
+        distortion_policies=[stage.distortion_policies[i] for i in keep],
+        distortion_policy_weights=[stage.distortion_policy_weights[i]
                                    for i in keep],
     )
 
 
 def test_random_stage_deterministic_matches_jax():
-    stage = _deterministic_stage()
+    ref_stage = _deterministic_stage(JAX_STAGE)
+    stage = _deterministic_stage(STAGE)
     images = _images(5, (6, 48, 56, 3))
     rng_ref, rng_port = (np.random.default_rng(21) for _ in range(2))
-    _, sequences = sample_photometric_sequences(
-        6, (48, 56), 6, copy.deepcopy(rng_port), stage)
+    sequences = assert_same_draws(rng_ref, rng_port, 6, (48, 56), 6,
+                                  ref_stage, stage)
     want = np.asarray(jax_photometric(jnp.asarray(images), 6, rng_ref,
-                                      stage_config=stage))
+                                      stage_config=ref_stage))
     got = batch_random_photometric_distort(
         torch.from_numpy(images), 6, rng_port, stage_config=stage).numpy()
     assert rng_ref.random() == rng_port.random()
@@ -303,8 +339,7 @@ def test_random_stage_deterministic_matches_jax():
 def test_random_stage_default_keeps_rng_and_idle_samples():
     images = _images(6, (8, 40, 40, 3))
     rng_ref, rng_port = (np.random.default_rng(33) for _ in range(2))
-    _, sequences = sample_photometric_sequences(
-        8, (40, 40), 5, copy.deepcopy(rng_port))
+    sequences = assert_same_draws(rng_ref, rng_port, 8, (40, 40))
     jax_photometric(jnp.asarray(images), 5, rng_ref)
     got = batch_random_photometric_distort(
         torch.from_numpy(images), 5, rng_port).numpy()
@@ -327,8 +362,7 @@ def test_batch_random_distort_matches_jax():
 
     images = _images(9, (4, 48, 48, 3))
     rng_ref, rng_port = (np.random.default_rng(44) for _ in range(2))
-    _, sequences = sample_photometric_sequences(
-        4, (48, 48), 5, copy.deepcopy(rng_port))
+    sequences = assert_same_draws(rng_ref, rng_port, 4, (48, 48))
     want, want_active, want_boxes = jax_distort(jnp.asarray(images), 5,
                                                 rng_ref)
     got, active, boxes = batch_random_distort(torch.from_numpy(images), 5,
@@ -422,24 +456,26 @@ def test_catalog_functions_match_jax(name):
     from vkit_tpu_torch.mechanism import batched as port_batched
 
     images = _images(12)
-    configs = _configs(name, np.random.default_rng(13))
+    ref_configs, configs = _configs(name, 13)
 
-    def field(key):
-        return [getattr(c, key) for c in configs]
+    def call_args(configs):
+        def field(key):
+            return [getattr(c, key) for c in configs]
 
-    args = {
-        'gaussian_blur': lambda: (field('sigma'),),
-        'defocus_blur': lambda: (field('radius'),),
-        'motion_blur': lambda: (field('radius'), field('angle')),
-        'glass_blur': lambda: (field('sigma'), [3, 1, 2], [2, 9, 1]),
-        'jpeg_quality': lambda: (field('quality'),),
-    }.get(name, lambda: (configs,))()
+        return {
+            'gaussian_blur': lambda: (field('sigma'),),
+            'defocus_blur': lambda: (field('radius'),),
+            'motion_blur': lambda: (field('radius'), field('angle')),
+            'glass_blur': lambda: (field('sigma'), [3, 1, 2], [2, 9, 1]),
+            'jpeg_quality': lambda: (field('quality'),),
+        }.get(name, lambda: (configs,))()
+
     extra = ((np.random.default_rng(14),), (np.random.default_rng(14),)) \
         if name == 'glass_blur' else ((), ())
     fn = f'batched_{name}'
-    want = np.asarray(getattr(jax_batched, fn)(jnp.asarray(images), *args,
-                                               *extra[0]))
-    got = getattr(port_batched, fn)(torch.from_numpy(images), *args,
-                                    *extra[1]).numpy()
+    want = np.asarray(getattr(jax_batched, fn)(
+        jnp.asarray(images), *call_args(ref_configs), *extra[0]))
+    got = getattr(port_batched, fn)(torch.from_numpy(images),
+                                    *call_args(configs), *extra[1]).numpy()
     assert np.abs(got.astype(int) - want.astype(int)).max() <= (
         1 if 'blur' in name else 0)

@@ -1,7 +1,9 @@
 """The port's page-synthesis slice (vkit_tpu_torch/synth/device.py) against
 vkit_tpu's synthesize_page_batch, with the photometric stage off and on
-(the default of both): same pages, same rng, so the same photometric draws,
-plans and crop windows, draw for draw."""
+(the default of both).  Each package prepares its pages with its own
+planner from the same seed (checked equal first), and synthesizes them
+with the same rng, so the same photometric draws, plans and crop windows,
+draw for draw."""
 import copy
 
 import numpy as np
@@ -9,18 +11,25 @@ import pytest
 import torch
 
 from tests.pipeline.fixtures import build_assets
-from vkit_tpu.synth import CropConfig, SynthPlanner, SynthPlannerConfig
+from tests.test_torch_host import (
+    assert_same_draws,
+    assert_same_pages,
+    planner_pair,
+)
+from vkit_tpu.synth import CropConfig as JaxCropConfig
 from vkit_tpu.synth import synthesize_page_batch as jax_synthesize
 from vkit_tpu_torch.mechanism.batched import RNG_CONSUMING
-from vkit_tpu_torch.mechanism.batched_random import (
-    sample_photometric_sequences,
+from vkit_tpu_torch.synth import (
+    CropConfig,
+    synthesize_page_batch,
+    synthesize_stream,
 )
-from vkit_tpu_torch.synth import synthesize_page_batch, synthesize_stream
 
 torch.set_num_threads(1)
 
 OUT = (256, 256)
 CROP = CropConfig(core_size=192, num_per_page=2)
+JAX_CROP = JaxCropConfig(core_size=192, num_per_page=2)
 
 
 @pytest.fixture(scope='module')
@@ -28,34 +37,21 @@ def assets(tmp_path_factory):
     return build_assets(tmp_path_factory.mktemp('torch_synth_assets'))
 
 
-def _planner(assets, full_content: bool):
-    extra = {}
-    if full_content:
-        selector = [{'type': 'selector', 'weight': 1,
-                     'config': {'image_folders': [assets['bg_image_folder']]}}]
-        extra = dict(
-            background_image_configs=selector,
-            image_configs=selector,
-            symbol_image_folders=[assets['symbol_image_folder']],
-            enable_barcodes=True,
-            enable_seal_impressions=True,
-            enable_text_line_bounding_boxes=True,
-        )
-    # The 320 x 320 planner of tests/synth/test_synth.py.
-    return SynthPlanner(SynthPlannerConfig(
-        lexicon_collection_json=assets['lexicon_json'],
-        font_collection_folder=assets['font_collection_folder'],
-        char_sampler_configs=[{
-            'type': 'corpus', 'weight': 1,
-            'config': {'txt_files': [assets['corpus_txt']]},
-        }],
-        page_height=320, page_width=320, **extra,
-    ))
-
-
 @pytest.fixture(scope='module')
 def planners(assets):
-    return {'text': _planner(assets, False), 'full': _planner(assets, True)}
+    """{content: (vkit_tpu's planner, the port's)}: the 320 x 320 planner
+    of tests/synth/test_synth.py, text only or full content."""
+    return {'text': planner_pair(assets, False),
+            'full': planner_pair(assets, True)}
+
+
+def prepare_pair(planners, content, n, seed):
+    """(vkit_tpu's pages, the port's) from the same seed, checked equal."""
+    jax_planner, torch_planner = planners[content]
+    ref = jax_planner.prepare_batch(n, np.random.default_rng(seed))
+    got = torch_planner.prepare_batch(n, np.random.default_rng(seed))
+    assert_same_pages(ref, got)
+    return ref, got
 
 
 def _boxes(boxes):
@@ -71,8 +67,9 @@ HSV_ROUNDING = frozenset({'color_shift', 'brightness_shift'})
 
 
 def photometric_draws(rng, n, shape, level=5):
-    """Each sample's photometric draws, replayed on a copy of ``rng``."""
-    return sample_photometric_sequences(n, shape, level, copy.deepcopy(rng))[1]
+    """Each sample's photometric draws, replayed by both packages on copies
+    of ``rng`` and checked equal."""
+    return assert_same_draws(rng, rng, n, shape, level)
 
 
 def assert_same_result(ref, got, draws=None):
@@ -124,12 +121,12 @@ def assert_same_result(ref, got, draws=None):
 
 @pytest.mark.parametrize('content,seed', [('text', 5), ('full', 6)])
 def test_page_batch_matches_jax(planners, content, seed):
-    pages = planners[content].prepare_batch(2, np.random.default_rng(seed))
+    ref_pages, pages = prepare_pair(planners, content, 2, seed)
     if content == 'full':
         assert any(p.overlay_entries for p in pages)
-    ref = jax_synthesize(pages, 5, np.random.default_rng(seed + 100),
+    ref = jax_synthesize(ref_pages, 5, np.random.default_rng(seed + 100),
                          out_shape=OUT, enable_photometric=False,
-                         crop_config=CROP)
+                         crop_config=JAX_CROP)
     got = synthesize_page_batch(pages, 5, np.random.default_rng(seed + 100),
                                 out_shape=OUT, enable_photometric=False,
                                 crop_config=CROP, device='cpu')
@@ -140,8 +137,8 @@ def test_page_batch_matches_jax(planners, content, seed):
 
 def test_no_geometric_matches_jax(planners):
     """Nop plans: the affine route and the constant-stretch finish."""
-    pages = planners['text'].prepare_batch(2, np.random.default_rng(8))
-    ref = jax_synthesize(pages, 5, np.random.default_rng(1),
+    ref_pages, pages = prepare_pair(planners, 'text', 2, 8)
+    ref = jax_synthesize(ref_pages, 5, np.random.default_rng(1),
                          enable_photometric=False, enable_geometric=False)
     got = synthesize_page_batch(pages, 5, np.random.default_rng(1),
                                 enable_photometric=False,
@@ -152,12 +149,12 @@ def test_no_geometric_matches_jax(planners):
 @pytest.mark.parametrize('seed', [12, 13])
 def test_photometric_page_batch_matches_jax(planners, seed):
     """The reference's default: the photometric stage on."""
-    pages = planners['full'].prepare_batch(4, np.random.default_rng(seed))
+    ref_pages, pages = prepare_pair(planners, 'full', 4, seed)
     rng = np.random.default_rng(seed + 100)
     draws = photometric_draws(rng, 4, pages[0].background.shape[:2])
     assert any(draws)
-    ref = jax_synthesize(pages, 5, copy.deepcopy(rng), out_shape=OUT,
-                         crop_config=CROP)
+    ref = jax_synthesize(ref_pages, 5, copy.deepcopy(rng), out_shape=OUT,
+                         crop_config=JAX_CROP)
     got = synthesize_page_batch(pages, 5, rng, out_shape=OUT,
                                 crop_config=CROP, device='cpu')
     assert_same_result(ref, got, draws)
@@ -167,7 +164,7 @@ def test_stream_matches_jax(planners):
     """The stream's per-batch child rngs drive prep and synthesis (the
     photometric stage on, as in the reference's stream); the reference run
     replays them through vkit_tpu batch by batch."""
-    planner = planners['text']
+    jax_planner, planner = planners['text']
     got = list(synthesize_stream(planner, 2, 5, np.random.default_rng(9),
                                  num_batches=2, out_shape=OUT,
                                  crop_config=CROP, device='cpu'))
@@ -176,15 +173,18 @@ def test_stream_matches_jax(planners):
     assert len(got) == 2
     for seed, result in zip(seeds, got):
         batch_rng = np.random.default_rng(seed)
-        pages = planner.prepare_batch(2, batch_rng)
-        draws = photometric_draws(batch_rng, 2, pages[0].background.shape[:2])
-        ref = jax_synthesize(pages, 5, batch_rng, out_shape=OUT,
-                             crop_config=CROP)
+        ref_pages = jax_planner.prepare_batch(2, batch_rng)
+        assert_same_pages(ref_pages, planner.prepare_batch(
+            2, np.random.default_rng(seed)))
+        draws = photometric_draws(batch_rng, 2,
+                                  ref_pages[0].background.shape[:2])
+        ref = jax_synthesize(ref_pages, 5, batch_rng, out_shape=OUT,
+                             crop_config=JAX_CROP)
         assert_same_result(ref, result, draws)
 
 
 def test_keep_on_device_returns_tensors(planners):
-    pages = planners['text'].prepare_batch(1, np.random.default_rng(4))
+    pages = planners['text'][1].prepare_batch(1, np.random.default_rng(4))
     out = synthesize_page_batch(pages, 5, np.random.default_rng(4),
                                 out_shape=OUT, crop_config=CROP,
                                 keep_on_device=True, device='cpu')
@@ -200,9 +200,9 @@ def test_keep_on_device_returns_tensors(planners):
 
 def test_stage_timer_spans_leave_result_unchanged(planners):
     """A timer records one span per stage and changes nothing."""
-    from vkit_tpu.utility.profiling import StepTimer
+    from vkit_tpu_torch.utility.profiling import StepTimer
 
-    pages = planners['full'].prepare_batch(2, np.random.default_rng(14))
+    pages = planners['full'][1].prepare_batch(2, np.random.default_rng(14))
     plain = synthesize_page_batch(pages, 5, np.random.default_rng(15),
                                   out_shape=OUT, crop_config=CROP,
                                   device='cpu')
@@ -222,7 +222,7 @@ def test_stage_timer_spans_leave_result_unchanged(planners):
 
 @pytest.mark.parametrize('option', ['gaussians', 'region'])
 def test_unported_options_raise(planners, option):
-    pages = planners['text'].prepare_batch(1, np.random.default_rng(0))
+    pages = planners['text'][1].prepare_batch(1, np.random.default_rng(0))
     kwargs = {
         'gaussians': {'emit_char_gaussians': True},
         'region': {'region_config': object()},

@@ -1,30 +1,45 @@
 """The port's geometric stage (vkit_tpu_torch/ops/warp_*.py,
-vkit_tpu_torch/mechanism/batched*.py) against vkit_tpu on the same inputs
-and plans; vkit_tpu's Pallas kernels run in interpret mode here, the
-port's wrappers run their plain versions."""
+vkit_tpu_torch/mechanism/batched*.py) against vkit_tpu on the same inputs;
+each package plans with its own host planners (plans checked equal first);
+vkit_tpu's Pallas kernels run in interpret mode here, the port's wrappers
+run their plain versions."""
+import copy
+
+import attr
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from tests.ops.test_warp_mxu import _fwd_mat
+from tests.test_torch_host import assert_same_plans, assert_same_value
 from vkit_tpu.mechanism import batched as JB
-from vkit_tpu.mechanism import distortion as D
+from vkit_tpu.mechanism import distortion as JD
 from vkit_tpu.mechanism.batched_random import (
     batch_random_geometric_distort as jax_random_geometric,
 )
-from vkit_tpu.mechanism.batched_random import sample_geometric_plans
+from vkit_tpu.mechanism.batched_random import (
+    sample_geometric_plans as jax_sample_geometric_plans,
+)
 from vkit_tpu.mechanism.distortion.warp_plan import (
-    matrix_plan,
-    rescale_plan_to,
-    warp_active_mask,
+    matrix_plan as jax_matrix_plan,
+)
+from vkit_tpu.mechanism.distortion.warp_plan import (
+    rescale_plan_to as jax_rescale_plan_to,
 )
 from vkit_tpu.ops import warp_banded as JWB
 from vkit_tpu.ops import warp_mxu as JWM
 from vkit_tpu_torch import convert
 from vkit_tpu_torch.mechanism import batched as TB
+from vkit_tpu_torch.mechanism import distortion as D
 from vkit_tpu_torch.mechanism.batched_random import (
     batch_random_geometric_distort,
+    sample_geometric_plans,
+)
+from vkit_tpu_torch.mechanism.distortion.warp_plan import (
+    matrix_plan,
+    rescale_plan_to,
+    warp_active_mask,
 )
 from vkit_tpu_torch.ops import kernels as K
 from vkit_tpu_torch.ops import warp_banded as TWB
@@ -60,7 +75,7 @@ def page_images():
     return np.stack([img, img[::-1].copy(), img[:, ::-1].copy()])
 
 
-def _spread_plans(n, height, rng):
+def _spread_plans(n, height, rng, matrix_plan=matrix_plan):
     """Deskew + crop one 700-px half of each (height x 1400) spread: the
     pass-H span (~700) fails the 2048-lane window and routes row_shift."""
     plans = []
@@ -76,6 +91,25 @@ def _spread_plans(n, height, rng):
         ])
         plans.append(matrix_plan(mat, (height, 1400), (height, 700)))
     return plans
+
+
+def _plan_pair(cases, shape, seed=0):
+    """((distortion name, config), ...) planned by each package from the
+    same seed: (vkit_tpu's plans, the port's), checked equal."""
+    ref = [getattr(JD, name).plan(cfg, shape, np.random.default_rng(seed))
+           for name, cfg in cases]
+    got = [getattr(D, name).plan(cfg, shape, np.random.default_rng(seed))
+           for name, cfg in cases]
+    assert_same_plans(ref, got)
+    return ref, got
+
+
+def _same_affine_plan(ref, got):
+    (ref_plan, ref_statics), (plan, statics) = ref, got
+    assert_same_value([tuple(ref_plan.pass_v), tuple(ref_plan.pass_h),
+                       tuple(ref_statics)],
+                      [tuple(plan.pass_v), tuple(plan.pass_h),
+                       tuple(statics)], 'affine plan')
 
 
 def _active_diff(ref, got, plans, shapes):
@@ -99,9 +133,11 @@ def test_apply_affine_warp_matches_jax(smooth_image, dtype):
         _fwd_mat(h, w, -23, scale=0.9, shear=10, tx=5),
     ])
     imgs = np.stack([smooth_image] * 3).astype(dtype)
-    plan, statics = JWM.plan_affine_warp(mats, (h, w))
-    ref = np.asarray(JWM.apply_affine_warp(jnp.asarray(imgs), plan, statics,
-                                           border_value=3.0))
+    ref_plan, ref_statics = JWM.plan_affine_warp(mats, (h, w))
+    plan, statics = TWM.plan_affine_warp(mats, (h, w))
+    _same_affine_plan((ref_plan, ref_statics), (plan, statics))
+    ref = np.asarray(JWM.apply_affine_warp(jnp.asarray(imgs), ref_plan,
+                                           ref_statics, border_value=3.0))
     got = TWM.apply_affine_warp(
         torch.from_numpy(imgs), convert.affine_warp_plan(plan, 'cpu'),
         statics, border_value=3.0,
@@ -116,12 +152,17 @@ def test_apply_affine_warp_matches_jax(smooth_image, dtype):
 def test_apply_affine_warp_quad_matches_jax(smooth_image):
     h, w = smooth_image.shape[:2]
     mats = np.stack([_fwd_mat(h, w, a) for a in (10, 100, 185, -95)])
-    quads, reduced = JWM.quadrant_reduce_mats(mats, (h, w))
+    ref_quads, ref_reduced = JWM.quadrant_reduce_mats(mats, (h, w))
+    quads, reduced = TWM.quadrant_reduce_mats(mats, (h, w))
+    assert_same_value([ref_quads, ref_reduced], [quads, reduced], 'quads')
     assert set(quads.tolist()) == {0, 1, 2, 3}
-    plan, statics = JWM.plan_affine_warp(reduced, (h, w), canonical=True)
+    ref_plan, ref_statics = JWM.plan_affine_warp(ref_reduced, (h, w),
+                                                 canonical=True)
+    plan, statics = TWM.plan_affine_warp(reduced, (h, w), canonical=True)
+    _same_affine_plan((ref_plan, ref_statics), (plan, statics))
     imgs = np.stack([smooth_image] * 4)
     ref = np.asarray(JWM.apply_affine_warp_quad(
-        jnp.asarray(imgs), jnp.asarray(quads), plan, statics
+        jnp.asarray(imgs), jnp.asarray(ref_quads), ref_plan, ref_statics
     ))
     got = TWM.apply_affine_warp_quad(
         torch.from_numpy(imgs), quads, convert.affine_warp_plan(plan, 'cpu'),
@@ -134,9 +175,12 @@ def test_row_shift_route_matches_jax():
     """A 1400-px source resampled to 700 outputs takes the padded
     row_shift kernel in both packages."""
     rng = np.random.default_rng(5)
+    ref_plans = _spread_plans(2, 24, copy.deepcopy(rng), jax_matrix_plan)
     plans = _spread_plans(2, 24, rng)
+    assert_same_plans(ref_plans, plans)
     imgs = rng.integers(0, 256, (2, 24, 1400, 3), dtype=np.uint8)
-    ref = np.asarray(JB.batched_plan_warp(plans, imgs, border_value=255)[0])
+    ref = np.asarray(JB.batched_plan_warp(ref_plans, imgs,
+                                          border_value=255)[0])
     got, shapes, _ = TB.batched_plan_warp(plans, torch.from_numpy(imgs),
                                           border_value=255)
     assert tuple(got.shape) == ref.shape == (2, 24, 700, 3)
@@ -153,20 +197,30 @@ def test_apply_banded_warp_matches_jax(page_images):
                                 'rotation_theta': 6},
         'grid_size': 16,
     }
-    plans = [D.camera_cubic_curve.plan(cfg, (h, w), np.random.default_rng(s))
-             for s in (0, 1)]
-    plans.append(D.rotate.plan({'angle': 160}, (h, w),
-                               np.random.default_rng(0)))
+    ref_plans, plans = [], []
+    for name, c, seed in (('camera_cubic_curve', cfg, 0),
+                          ('camera_cubic_curve', cfg, 1),
+                          ('rotate', {'angle': 160}, 0)):
+        ref_pair, pair = _plan_pair([(name, c)], (h, w), seed)
+        ref_plans += ref_pair
+        plans += pair
     shapes = [p.dst_shape for p in plans]
     canvas = (max(s[0] for s in shapes), max(s[1] for s in shapes))
-    nodes = JB._build_coarse_nodes(plans, shapes, canvas)
-    plan, taps, rejects, flips, _ = JWB.plan_banded_warp(
-        nodes[0], nodes[1], nodes[2], nodes[3], (h, w), canvas,
-    )
+    ref_nodes = JB._build_coarse_nodes(ref_plans, shapes, canvas)
+    nodes = TB._build_coarse_nodes(plans, shapes, canvas)
+    ref_planned = JWB.plan_banded_warp(*ref_nodes, (h, w), canvas)
+    planned = TWB.plan_banded_warp(*nodes, (h, w), canvas)
+    assert_same_value(
+        [list(ref_nodes), tuple(ref_planned[0].pass_v),
+         tuple(ref_planned[0].pass_h), list(ref_planned[1:])],
+        [list(nodes), tuple(planned[0].pass_v), tuple(planned[0].pass_h),
+         list(planned[1:])], 'banded plan')
+    plan, taps, rejects, flips, _ = planned
     assert len(rejects) == 0 and flips[0].any()    # the 160-degree flips
     x = page_images[:3].astype(np.float32)
     ref = np.asarray(JWB.apply_banded_warp(
-        jnp.asarray(x), plan, canvas, taps, flips=flips, border_value=9.0
+        jnp.asarray(x), ref_planned[0], canvas, taps, flips=flips,
+        border_value=9.0,
     ))
     got = TWB.apply_banded_warp(
         torch.from_numpy(x), convert.banded_warp_plan(plan, 'cpu'), canvas,
@@ -185,9 +239,9 @@ def test_batched_plan_warp_mixed_matches_jax(page_images, mode, return_maps):
     batch, held to vkit_tpu's own output."""
     h, w = page_images.shape[1:3]
     cases = [
-        (D.rotate, {'angle': 25}),
-        (D.shear_hori, {'angle': 12}),
-        (D.camera_cubic_curve, {
+        ('rotate', {'angle': 25}),
+        ('shear_hori', {'angle': 12}),
+        ('camera_cubic_curve', {
             'curve_alpha': 12, 'curve_beta': -10, 'curve_direction': 0,
             'curve_scale': 1.0,
             'camera_model_config': {'rotation_unit_vec': [1.0, 0.0, 0.0],
@@ -195,9 +249,8 @@ def test_batched_plan_warp_mixed_matches_jax(page_images, mode, return_maps):
             'grid_size': 16,
         }),
     ]
-    plans = [dist.plan(cfg, (h, w), np.random.default_rng(0))
-             for dist, cfg in cases]
-    ref = JB.batched_plan_warp(plans, page_images, mode=mode,
+    ref_plans, plans = _plan_pair(cases, (h, w))
+    ref = JB.batched_plan_warp(ref_plans, page_images, mode=mode,
                                return_maps=return_maps)
     got = TB.batched_plan_warp(plans, torch.from_numpy(page_images),
                                mode=mode, return_maps=return_maps)
@@ -216,26 +269,31 @@ def test_downscale_tail_matches_jax():
     test_downscale_tail_matches_gather: a draw whose tap need exceeds the
     ladder takes the 2x mean-pool tail in both packages."""
     side, out_shape = 320, (352, 352)
-    rng = np.random.default_rng(11)
+    ref_rng, rng = np.random.default_rng(11), np.random.default_rng(11)
     found = None
     for _ in range(600):
-        plans = sample_geometric_plans(8, (side, side), 9, rng)
-        plans = [rescale_plan_to(p, out_shape) for p in plans]
+        ref_plans = [jax_rescale_plan_to(p, out_shape) for p in
+                     jax_sample_geometric_plans(8, (side, side), 9, ref_rng)]
+        plans = [rescale_plan_to(p, out_shape) for p in
+                 sample_geometric_plans(8, (side, side), 9, rng)]
         lat = [p for p in plans if p.is_lattice]
         if not lat:
             continue
-        nodes = JB._build_coarse_nodes(
+        nodes = TB._build_coarse_nodes(
             lat, [p.dst_shape for p in lat], out_shape
         )
-        planned = JWB.plan_banded_warp(
+        planned = TWB.plan_banded_warp(
             nodes[0], nodes[1], nodes[2], nodes[3], (side, side), out_shape
         )
         if planned is None:
             continue
-        if JWB._LAST_NEEDS.max() > 128:
-            found = lat[int(np.argmax(JWB._LAST_NEEDS))]
+        if TWB._LAST_NEEDS.max() > 128:
+            pick = int(np.argmax(TWB._LAST_NEEDS))
+            found = lat[pick]
+            ref_found = [p for p in ref_plans if p.is_lattice][pick]
             break
     assert found is not None, 'no high-needs draw found'
+    assert_same_plans([ref_found], [found])
 
     img = np.clip(
         np.cumsum(np.cumsum(
@@ -244,7 +302,8 @@ def test_downscale_tail_matches_jax():
     ).astype(np.uint8)
     plans2 = [found]
     imgs = img[None]
-    ref = np.asarray(JB.batched_plan_warp(plans2, imgs, mode='auto')[0])
+    ref = np.asarray(JB.batched_plan_warp([ref_found], imgs,
+                                          mode='auto')[0])
     got, shapes, _ = TB.batched_plan_warp(plans2, torch.from_numpy(imgs),
                                           mode='auto')
     d = _active_diff(ref, got.numpy(), plans2, shapes)
@@ -260,9 +319,11 @@ def test_oversized_source_falls_back_to_gather():
     h, w = 24, 1600
     mats = [np.asarray([[1.0, 0.02, 3.0], [0.0, 1.0, -1.5],
                         [s * 1e-6, 0.0, 1.0]]) for s in (1.0, -2.0)]
+    ref_plans = [jax_matrix_plan(m, (h, w), (h, w)) for m in mats]
     plans = [matrix_plan(m, (h, w), (h, w)) for m in mats]
+    assert_same_plans(ref_plans, plans)
     imgs = rng.integers(0, 256, (2, h, w, 3), dtype=np.uint8)
-    ref = np.asarray(JB.batched_plan_warp(plans, imgs)[0])
+    ref = np.asarray(JB.batched_plan_warp(ref_plans, imgs)[0])
     got, shapes, _ = TB.batched_plan_warp(plans, torch.from_numpy(imgs))
     d = _active_diff(ref, got.numpy(), plans, shapes)
     assert d.max() <= 1
@@ -304,8 +365,13 @@ def test_coarse_nodes_16px_fidelity():
             grid_size=10,
         ),
     ]
-    plans = [camera_cubic_curve.plan(cfg, (h, w), np.random.default_rng(1))
+    ref_plans = [camera_cubic_curve.plan(cfg, (h, w),
+                                         np.random.default_rng(1))
+                 for cfg in configs]
+    plans = [D.camera_cubic_curve.plan(attr.asdict(cfg),
+                                       (h, w), np.random.default_rng(1))
              for cfg in configs]
+    assert_same_plans(ref_plans, plans)
     warped, shapes, covs = TB.batched_plan_warp(
         plans, torch.from_numpy(np.stack([img] * 2))
     )
@@ -318,7 +384,7 @@ def test_coarse_nodes_16px_fidelity():
         assert ref.shape == (hh, ww)
         diff = np.abs(warped[i, :hh, :ww].astype(int) - ref.mat.astype(int))
         near = binary_erosion(covs[i], iterations=4)
-        core = binary_erosion(covs[i], iterations=JB.COARSE_NODE_STEP)
+        core = binary_erosion(covs[i], iterations=TB.COARSE_NODE_STEP)
         assert diff[near].mean() <= 1.0, diff[near].mean()
         assert diff[core].max() <= 24, diff[core].max()
         assert (diff[near].max(axis=-1) > 24).mean() <= 1e-3
@@ -327,6 +393,10 @@ def test_coarse_nodes_16px_fidelity():
 def test_batch_random_geometric_distort_matches_jax():
     images = np.random.default_rng(3).integers(
         0, 256, (4, 80, 96, 3), dtype=np.uint8
+    )
+    assert_same_plans(
+        jax_sample_geometric_plans(4, (80, 96), 4, np.random.default_rng(17)),
+        sample_geometric_plans(4, (80, 96), 4, np.random.default_rng(17)),
     )
     ref, ref_active, ref_boxes = jax_random_geometric(
         images, 4, np.random.default_rng(17)

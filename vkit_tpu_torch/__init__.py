@@ -1,19 +1,9 @@
 """PyTorch + CUDA port of vkit_tpu for NVIDIA Hopper GPUs.
 
-The port reuses vkit_tpu's numpy host layers (page prep, fonts and atlases,
-WarpPlan and the geometric policies, the warp planners), whose packages
-load jax as they are imported.  jax is pinned to the CPU here, before
-anything imports vkit_tpu, so a CUDA build of jax never claims GPU memory:
-``JAX_PLATFORMS`` is set to ``cpu`` even where the environment names a GPU
-platform (a CUDA jax preallocates most of the card on first use).  A
-process that imported jax before this package keeps its own setting.  No
-module of this package imports jax itself.
+The host layers (page prep, fonts and atlases, elements and geometry,
+WarpPlan and the distortion policies, the warp planners, the native C++
+geometry library) are the port's own copies of vkit_tpu's numpy / C++ code,
+at the same relative paths, so both packages draw the same pages and plans
+from the same seed.  The device layers run on torch tensors.  The package
+imports neither jax nor vkit_tpu.
 """
-import os
-import sys
-
-from ._host_deps import ensure_sklearn_importable
-
-if 'jax' not in sys.modules:
-    os.environ['JAX_PLATFORMS'] = 'cpu'
-ensure_sklearn_importable()

@@ -1,17 +1,12 @@
-"""State shared with the JAX package, carried over as torch tensors.
+"""Host plans and tables, carried over to a device as torch tensors.
 
-The port reuses vkit_tpu's host planners.  Their plans and placement tables
-are numpy arrays, except where a planner caches a device constant as a jax
-array (``warp_banded._cached_node_weights``, ``batched._interp_weights``).
-Every array goes through ``np.asarray`` here, so no jax array ever reaches
-torch and both packages start from the same numbers.
+The host planners (ops/warp_mxu.py, ops/warp_banded.py, ops/glyph.py,
+engine/font/atlas.py) build numpy arrays; the helpers here move a whole
+plan or table onto a device with the dtype each field needs, keeping its
+NamedTuple type.
 """
 import numpy as np
 import torch
-
-from vkit_tpu.ops.glyph import GlyphPlacements
-from vkit_tpu.ops.warp_banded import BandedPassPlan, BandedWarpPlan
-from vkit_tpu.ops.warp_mxu import AffineWarpPlan, LineResamplePlan
 
 
 def resolve_device(device) -> torch.device:
@@ -26,19 +21,20 @@ def resolve_device(device) -> torch.device:
 
 
 def to_tensor(array, device, dtype=None) -> torch.Tensor:
-    """numpy / jax / torch array -> contiguous tensor on ``device``."""
+    """numpy array (or tensor) -> contiguous tensor on ``device``."""
     if isinstance(array, torch.Tensor):
         out = array.to(device)
         return (out if dtype is None else out.to(dtype)).contiguous()
     host = np.ascontiguousarray(np.asarray(array))
-    if not host.flags.writeable:  # a view of a jax array or a frozen mat
+    if not host.flags.writeable:  # a frozen element mat
         host = host.copy()
     out = torch.from_numpy(host).to(device)
     return (out if dtype is None else out.to(dtype)).contiguous()
 
 
-def line_resample_plan(plan: LineResamplePlan, device) -> LineResamplePlan:
-    return LineResamplePlan(
+def line_resample_plan(plan, device):
+    """ops.warp_mxu.LineResamplePlan on ``device``."""
+    return plan._replace(
         i0=to_tensor(plan.i0, device, torch.int32),
         frac_j=to_tensor(plan.frac_j, device, torch.float32),
         starts=to_tensor(plan.starts, device, torch.int32),
@@ -46,15 +42,17 @@ def line_resample_plan(plan: LineResamplePlan, device) -> LineResamplePlan:
     )
 
 
-def affine_warp_plan(plan: AffineWarpPlan, device) -> AffineWarpPlan:
-    return AffineWarpPlan(
+def affine_warp_plan(plan, device):
+    """ops.warp_mxu.AffineWarpPlan on ``device``."""
+    return plan._replace(
         pass_v=line_resample_plan(plan.pass_v, device),
         pass_h=line_resample_plan(plan.pass_h, device),
     )
 
 
-def banded_pass_plan(plan: BandedPassPlan, device) -> BandedPassPlan:
-    return BandedPassPlan(
+def banded_pass_plan(plan, device):
+    """ops.warp_banded.BandedPassPlan on ``device``."""
+    return plan._replace(
         base=to_tensor(plan.base, device, torch.int32),
         nodes=to_tensor(plan.nodes, device, torch.float32),
         w_l=to_tensor(plan.w_l, device, torch.float32),
@@ -62,22 +60,24 @@ def banded_pass_plan(plan: BandedPassPlan, device) -> BandedPassPlan:
     )
 
 
-def banded_warp_plan(plan: BandedWarpPlan, device) -> BandedWarpPlan:
-    return BandedWarpPlan(
+def banded_warp_plan(plan, device):
+    """ops.warp_banded.BandedWarpPlan on ``device``."""
+    return plan._replace(
         pass_v=banded_pass_plan(plan.pass_v, device),
         pass_h=banded_pass_plan(plan.pass_h, device),
     )
 
 
-def glyph_placements(placements: GlyphPlacements, device) -> GlyphPlacements:
-    """Placement table on ``device`` (int32 ids and boxes, float32 rest)."""
+def glyph_placements(placements, device):
+    """ops.glyph.GlyphPlacements on ``device`` (int32 ids and boxes,
+    float32 rest)."""
     ints = ('glyph_ids', 'sample_ids', 'ups', 'lefts', 'dst_hs', 'dst_ws')
-    return GlyphPlacements(**{
+    return placements._replace(**{
         name: to_tensor(
             getattr(placements, name), device,
             torch.int32 if name in ints else torch.float32,
         )
-        for name in GlyphPlacements._fields
+        for name in placements._fields
     })
 
 

@@ -6,52 +6,29 @@ Port of vkit_tpu/mechanism/batched.py.
 The photometric catalog (``batched_mean_shift`` ... ``batched_ellipse_streak``,
 ``_finish``) and its per-name dispatch (``batch_distort_images``,
 ``batch_distort_members``, ``batch_distort_grouped``): the host preps that
-turn configs into parameter arrays are the reference's own (its
-``_COMPILED_CATALOG``), so both packages derive the same parameters from
-the same configs.  The rng-consuming ops (the four noises,
-``channel_permutation``, ``fog`` and the rolls branch of ``glass_blur``)
-draw from a ``torch.Generator`` on the images' device and match the
-reference in distribution only.
+turn configs into parameter arrays (``_PREPS``) are the reference's own
+code, so both packages derive the same parameters from the same configs.
+The rng-consuming ops (the four noises, ``channel_permutation``, ``fog`` and
+the rolls branch of ``glass_blur``) draw from a ``torch.Generator`` on the
+images' device and match the reference in distribution only.
 
 The geometric half: the device helpers ``_coarse_gather_remap``,
 ``_coarse_gather_warp``, ``_upsample_node_maps``, ``_scatter_samples``,
 ``_banded_group_scatter``, ``_merge_subbatches``, ``_affine_sub_warp``,
 ``_mean_pool2`` and ``_coarse_mxu_warp``, and ``batched_plan_warp`` in modes
-``auto`` and ``gather``.  The host side (``_build_coarse_nodes``,
-``_bucket_pad``, ``LazyCoverages``, the affine / banded / gather routing, the
-plans) is the reference's own code, imported from vkit_tpu, so both packages
-send every sample down the same route.  Scatters write in place into the
-output batch where the reference donated its buffer.
+``auto`` and ``gather``.  The host side (``plan_backward_maps``,
+``_build_coarse_nodes``, ``_bucket_pad``, ``LazyCoverages``, the affine /
+banded / gather routing, the plans) is the reference's own code, so both
+packages send every sample down the same route.  Scatters write in place
+into the output batch where the reference donated its buffer.
 """
+import logging
 from collections import defaultdict
 from types import SimpleNamespace
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-
-from vkit_tpu.mechanism.batched import _COMPILED_CATALOG as _REFERENCE_CATALOG
-from vkit_tpu.mechanism.batched import (
-    LazyCoverages,
-    _bucket_pad,
-    _build_coarse_nodes,
-)
-from vkit_tpu.mechanism.batched_random import (
-    _PER_SAMPLE_ONLY,
-    _static_signature,
-)
-from vkit_tpu.mechanism.distortion.photometric.base import OutOfBoundBehavior
-from vkit_tpu.mechanism.distortion.photometric.blur import (
-    build_glass_blur_permutation,
-)
-from vkit_tpu.mechanism.distortion.warp_plan import plan_content_box
-from vkit_tpu.ops.warp_banded import (
-    _quantize_taps,
-    interp_node_weights,
-    plan_banded_warp,
-    slice_banded_plan,
-)
-from vkit_tpu.ops.warp_mxu import plan_affine_warp, quadrant_reduce_mats
 
 from .. import convert
 from ..ops import blur as blur_ops
@@ -65,19 +42,478 @@ from ..ops.effect import (
     _quality_scaled_table,
     diamond_square_mask,
 )
-from ..ops.jpeg_exact import jpeg_roundtrip_exact
+from ..ops.jpeg_exact import jpeg_roundtrip_exact_torch
 from ..ops.warp import remap_f32, to_image_dtype
-from ..ops.warp_banded import apply_banded_warp, banded_warp_body
-from ..ops.warp_mxu import apply_affine_warp, apply_affine_warp_quad
+from ..ops.warp_banded import (
+    _quantize_taps,
+    apply_banded_warp,
+    banded_warp_body,
+    interp_node_weights,
+    plan_banded_warp,
+    slice_banded_plan,
+)
+from ..ops.warp_mxu import (
+    apply_affine_warp,
+    apply_affine_warp_quad,
+    plan_affine_warp,
+    quadrant_reduce_mats,
+)
+from .distortion.photometric.base import OutOfBoundBehavior
+from .distortion.photometric.blur import (
+    build_glass_blur_permutation,
+    estimate_gaussian_kernel_size,
+)
+from .distortion.warp_plan import plan_content_box
+
+logger = logging.getLogger(__name__)
+
+
+# ---------------------------------------------------------------------------
+# Host side of the geometric warp (numpy / C++): backward maps, coarse
+# nodes, coverages and bucket padding, the reference's own code.
+# ---------------------------------------------------------------------------
+
+
+def _native_repair(map_y, map_x, cov) -> bool:
+    """In-place C++ repair of uncovered backward-map pixels; False if the
+    native library is unavailable (callers run the numpy loop instead)."""
+    try:
+        from ..native import load_library
+        lib = load_library()
+    except Exception:  # noqa: BLE001
+        return False
+    if lib is None or not hasattr(lib, 'vg_repair_backward_maps'):
+        return False
+    import ctypes
+    f64p = ctypes.POINTER(ctypes.c_double)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    cov_u8 = np.ascontiguousarray(cov, dtype=np.uint8)
+    assert map_y.flags.c_contiguous and map_x.flags.c_contiguous
+    lib.vg_repair_backward_maps(
+        map_y.ctypes.data_as(f64p), map_x.ctypes.data_as(f64p),
+        cov_u8.ctypes.data_as(u8p), map_y.shape[0], map_y.shape[1],
+    )
+    return True
+
+
+def plan_backward_maps(plan, src_shape):
+    """(map_y, map_x, coverage) for ANY WarpPlan on its dst canvas.
+
+    Lattice plans repair uncovered dst pixels by row interpolation /
+    extension so the shared-slope tap scheme stays monotonic (the active
+    mask excludes them anyway); matrix and nop plans cover fully.
+    """
+    h_in, w_in = src_shape
+    from ..ops.warp import affine_maps_np
+
+    if plan.nop:
+        ys, xs = np.meshgrid(
+            np.arange(h_in, dtype=np.float64),
+            np.arange(w_in, dtype=np.float64),
+            indexing='ij',
+        )
+        return ys, xs, np.ones((h_in, w_in), dtype=bool)
+
+    if plan.matrix is not None:
+        map_y, map_x = affine_maps_np(plan.matrix, plan.dst_shape)
+        return map_y, map_x, np.ones(plan.dst_shape, dtype=bool)
+
+    map_y, map_x, cov = plan.backward_maps()
+    map_y = np.asarray(map_y, dtype=np.float64).copy()
+    map_x = np.asarray(map_x, dtype=np.float64).copy()
+    rows, cols_n = map_x.shape
+
+    native = _native_repair(map_y, map_x, cov)
+    if native:
+        return map_y, map_x, cov
+
+    cols = np.arange(cols_n, dtype=np.float64)
+
+    # Repair uncovered dst pixels by LINEAR EXTENSION of the covered data.
+    # Anything discontinuous here (sentinels, clamps) wrecks the shared-
+    # slope two-pass decomposition: tap needs explode and the whole batch
+    # falls off the device path.  Extended pixels read outside the source
+    # (border value) or bleed a few source pixels; the active mask gates
+    # them out downstream either way.
+    row_any = cov.any(axis=1)
+    covered_rows = np.flatnonzero(row_any)
+    row_full = cov.all(axis=1)
+    for y in covered_rows:
+        if row_full[y]:
+            continue  # fully covered row: nothing to repair (common case)
+        row_cov = cov[y]
+        idx = np.flatnonzero(row_cov)
+        first, last = idx[0], idx[-1]
+        contiguous = (last - first + 1) == len(idx)
+        if not contiguous:
+            # Interior holes (rare): interpolate across them.
+            fidx = idx.astype(np.float64)
+            map_x[y] = np.interp(cols, fidx, map_x[y, idx])
+            map_y[y] = np.interp(cols, fidx, map_y[y, idx])
+        # Extend with the LOCAL slope at each edge (an 8-px window), not
+        # the full-row average: a curved row extended at its tangent stays
+        # shape-consistent with its neighbours, keeping the two-pass tap
+        # budget small near canvas borders.
+        dl = min(last - first, 8)
+        if dl > 0:
+            sxl = (map_x[y, first + dl] - map_x[y, first]) / dl
+            syl = (map_y[y, first + dl] - map_y[y, first]) / dl
+            sxr = (map_x[y, last] - map_x[y, last - dl]) / dl
+            syr = (map_y[y, last] - map_y[y, last - dl]) / dl
+        else:
+            sxl = sxr = 1.0
+            syl = syr = 0.0
+        if first > 0:
+            d = cols[:first] - first
+            map_x[y, :first] = map_x[y, first] + d * sxl
+            map_y[y, :first] = map_y[y, first] + d * syl
+        if last < cols_n - 1:
+            d = cols[last + 1:] - last
+            map_x[y, last + 1:] = map_x[y, last] + d * sxr
+            map_y[y, last + 1:] = map_y[y, last] + d * syr
+    if len(covered_rows) and len(covered_rows) < rows:
+        top, bottom = covered_rows[0], covered_rows[-1]
+        dv = min(bottom - top, 8)
+        if dv > 0:
+            step_y_t = (map_y[top + dv] - map_y[top]) / dv
+            step_x_t = (map_x[top + dv] - map_x[top]) / dv
+            step_y_b = (map_y[bottom] - map_y[bottom - dv]) / dv
+            step_x_b = (map_x[bottom] - map_x[bottom - dv]) / dv
+        else:
+            step_y_t = step_y_b = np.ones(cols_n)
+            step_x_t = step_x_b = np.zeros(cols_n)
+        for y in range(0, top):
+            map_y[y] = map_y[top] + (y - top) * step_y_t
+            map_x[y] = map_x[top] + (y - top) * step_x_t
+        for y in range(bottom + 1, rows):
+            map_y[y] = map_y[bottom] + (y - bottom) * step_y_b
+            map_x[y] = map_x[bottom] + (y - bottom) * step_x_b
+        # Interior rows with no coverage (rare): nearest covered row.
+        interior = np.flatnonzero(~row_any)
+        interior = interior[(interior > top) & (interior < bottom)]
+        for y in interior:
+            y0 = covered_rows[np.argmin(np.abs(covered_rows - y))]
+            near_top = (y0 - top) <= (bottom - y0)
+            map_y[y] = map_y[y0] + (y - y0) * (
+                step_y_t if near_top else step_y_b
+            )
+            map_x[y] = map_x[y0] + (y - y0) * (
+                step_x_t if near_top else step_x_b
+            )
+    return map_y, map_x, cov
+
+
+def _matrix_nodes(plan, ys, xs):
+    """Evaluate a matrix/nop plan's backward map at node coordinates."""
+    if plan.nop or plan.matrix is None:
+        gy, gx = np.meshgrid(ys.astype(np.float64),
+                             xs.astype(np.float64), indexing='ij')
+        return gy, gx
+    mat3 = np.eye(3, dtype=np.float64)
+    m = np.asarray(plan.matrix, dtype=np.float64)
+    mat3[:m.shape[0]] = m
+    inv = np.linalg.inv(mat3)
+    gx = xs.astype(np.float64)[None, :]
+    gy = ys.astype(np.float64)[:, None]
+    sx = inv[0, 0] * gx + inv[0, 1] * gy + inv[0, 2]
+    sy = inv[1, 0] * gx + inv[1, 1] * gy + inv[1, 2]
+    if np.abs(inv[2, :2]).max() > 1e-12:
+        w = inv[2, 0] * gx + inv[2, 1] * gy + inv[2, 2]
+        w = np.where(np.abs(w) < 1e-12, 1.0, w)
+        sx = sx / w
+        sy = sy / w
+    return sy, sx
+
+
+def _repair_node_maps(cy, cx, cov, ys, xs):
+    """Node-level twin of the full-resolution repair: fill uncovered node
+    positions by interpolation / LOCAL-slope extension (float64 in
+    place).  Extended values are shape-consistent with their rows, which
+    keeps the banded tap budget small near canvas borders.  Vectorized
+    across rows (the per-row python loop was the node-building hot spot);
+    only rows with interior coverage gaps (rare: boundary rounding) take
+    a per-row np.interp pass."""
+    rows, cols = cov.shape
+    xs_f = xs.astype(np.float64)
+    ys_f = ys.astype(np.float64)
+    row_any = cov.any(axis=1)
+    covered_rows = np.flatnonzero(row_any)
+    if len(covered_rows) == 0:
+        return
+    cr = covered_rows
+    first = cov[cr].argmax(axis=1)
+    last = cols - 1 - cov[cr][:, ::-1].argmax(axis=1)
+    counts = cov[cr].sum(axis=1)
+    for i in np.flatnonzero(counts != (last - first + 1)):
+        r = cr[i]
+        idx = np.flatnonzero(cov[r])
+        fx = xs_f[idx]
+        cx[r] = np.interp(xs_f, fx, cx[r, idx])
+        cy[r] = np.interp(xs_f, fx, cy[r, idx])
+
+    partial = np.flatnonzero((first > 0) | (last < cols - 1))
+    if len(partial):
+        pr = cr[partial]
+        pf = first[partial]
+        pl = last[partial]
+        ar = np.arange(len(pr))
+        cxr = cx[pr]
+        cyr = cy[pr]
+        f1 = np.minimum(pf + 1, pl)
+        l1 = np.maximum(pl - 1, pf)
+        gl = np.maximum(xs_f[f1] - xs_f[pf], 1.0)
+        gr = np.maximum(xs_f[pl] - xs_f[l1], 1.0)
+        sxl = (cxr[ar, f1] - cxr[ar, pf]) / gl
+        syl = (cyr[ar, f1] - cyr[ar, pf]) / gl
+        sxr = (cxr[ar, pl] - cxr[ar, l1]) / gr
+        syr = (cyr[ar, pl] - cyr[ar, l1]) / gr
+        deg = pl == pf
+        sxl = np.where(deg, 1.0, sxl)
+        syl = np.where(deg, 0.0, syl)
+        sxr = np.where(deg, 1.0, sxr)
+        syr = np.where(deg, 0.0, syr)
+        colg = np.arange(cols)[None, :]
+        left_m = colg < pf[:, None]
+        right_m = colg > pl[:, None]
+        dl = xs_f[None, :] - xs_f[pf][:, None]
+        dr = xs_f[None, :] - xs_f[pl][:, None]
+        cxr = np.where(left_m, cxr[ar, pf][:, None] + dl * sxl[:, None], cxr)
+        cxr = np.where(right_m, cxr[np.arange(len(pr)), pl][:, None]
+                       + dr * sxr[:, None], cxr)
+        cyr = np.where(left_m, cy[pr][ar, pf][:, None] + dl * syl[:, None],
+                       cyr)
+        cyr = np.where(right_m, cy[pr][ar, pl][:, None] + dr * syr[:, None],
+                       cyr)
+        cx[pr] = cxr
+        cy[pr] = cyr
+
+    if len(covered_rows) == rows:
+        return
+    top, bottom = covered_rows[0], covered_rows[-1]
+    t1 = min(top + 1, bottom)
+    b1 = max(bottom - 1, top)
+    gt = max(ys_f[t1] - ys_f[top], 1.0)
+    gb = max(ys_f[bottom] - ys_f[b1], 1.0)
+    sy_t = (cy[t1] - cy[top]) / gt
+    sx_t = (cx[t1] - cx[top]) / gt
+    sy_b = (cy[bottom] - cy[b1]) / gb
+    sx_b = (cx[bottom] - cx[b1]) / gb
+    if bottom == top:
+        sy_t = sy_b = np.ones(cols)
+        sx_t = sx_b = np.zeros(cols)
+    if top > 0:
+        d = (ys_f[:top] - ys_f[top])[:, None]
+        cy[:top] = cy[top][None] + d * sy_t[None]
+        cx[:top] = cx[top][None] + d * sx_t[None]
+    if bottom < rows - 1:
+        d = (ys_f[bottom + 1:] - ys_f[bottom])[:, None]
+        cy[bottom + 1:] = cy[bottom][None] + d * sy_b[None]
+        cx[bottom + 1:] = cx[bottom][None] + d * sx_b[None]
+    interior = np.flatnonzero(~row_any)
+    interior = interior[(interior > top) & (interior < bottom)]
+    for r in interior:
+        r0 = covered_rows[np.argmin(np.abs(covered_rows - r))]
+        near_top = (r0 - top) <= (bottom - r0)
+        d = ys_f[r] - ys_f[r0]
+        cy[r] = cy[r0] + d * (sy_t if near_top else sy_b)
+        cx[r] = cx[r0] + d * (sx_t if near_top else sx_b)
+
+
+def lattice_node_maps(plan, ys, xs):
+    """(cy, cx) float64 node-sampled backward maps for a lattice plan,
+    repaired at node level; None when the native kernel is unavailable
+    (callers fall back to full-resolution maps + subsampling)."""
+    try:
+        from ..native import load_library
+        lib = load_library()
+    except Exception:  # noqa: BLE001
+        return None
+    if lib is None or not hasattr(lib, 'vg_lattice_node_maps'):
+        return None
+    import ctypes
+    f64p = ctypes.POINTER(ctypes.c_double)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+
+    inv_mats = np.ascontiguousarray(
+        plan._cell_mats(inverse=True), dtype=np.float64
+    )
+    quads = np.ascontiguousarray(plan._quads('dst'), dtype=np.float64)
+    dst_h, dst_w = plan.dst_shape
+    ys32 = np.ascontiguousarray(ys, dtype=np.int32)
+    xs32 = np.ascontiguousarray(xs, dtype=np.int32)
+    cy = np.zeros((len(ys), len(xs)), dtype=np.float32)
+    cx = np.zeros((len(ys), len(xs)), dtype=np.float32)
+    cov = np.zeros((len(ys), len(xs)), dtype=np.uint8)
+    lib.vg_lattice_node_maps(
+        quads.ctypes.data_as(f64p), inv_mats.ctypes.data_as(f64p),
+        len(quads), dst_h, dst_w,
+        ys32.ctypes.data_as(i32p), len(ys32),
+        xs32.ctypes.data_as(i32p), len(xs32),
+        cy.ctypes.data_as(f32p), cx.ctypes.data_as(f32p),
+        cov.ctypes.data_as(u8p),
+    )
+    cy = cy.astype(np.float64)
+    cx = cx.astype(np.float64)
+    _repair_node_maps(cy, cx, cov.astype(bool), ys, xs)
+    return cy, cx
+
+
+# Coarse-node spacing of the banded/gather warp paths.  The node arrays
+# are per-draw jit ARGUMENTS, so on a slow host<->device link their
+# transfer dominates the randomized warp step (~2 MB/step at 8 px on a
+# 704^2 canvas).  16 px keeps the documented fidelity bars on
+# production-size canvases (max <= 24 LSB at isolated high-gradient
+# pixels, mean <= 1 LSB — the catalog's fields are piecewise-projective
+# per lattice cell with grid_size >= 16, re-verified by
+# tests/ops/test_dense_warp at this spacing) at a 4x transfer/planning
+# cut.  Small canvases keep the 8-px grid: their fields bend faster
+# relative to the node spacing (same lattice curvature over far fewer
+# nodes), and their node arrays are tiny anyway.
+COARSE_NODE_STEP = 16
+_FINE_NODE_CANVAS = 320      # min(canvas) below this -> 8-px nodes
+
+
+def _build_coarse_nodes(map_list, shapes, canvas, node_step: Optional[int] = None):
+    """Sample every sample's backward field at shared coarse nodes.
+
+    ``map_list`` entries are either (map_y, map_x) full-res arrays
+    (lattice plans) or WarpPlan objects (matrix/nop — evaluated
+    analytically at the nodes, valid beyond the dst canvas too).
+    Returns (coarse_y, coarse_x, ys, xs) with linear extension beyond
+    each sample's own canvas."""
+    if node_step is None:
+        node_step = (
+            8 if min(canvas) < _FINE_NODE_CANVAS else COARSE_NODE_STEP
+        )
+    h_max, w_max = canvas
+    n = len(map_list)
+    ys = np.round(
+        np.linspace(0, h_max - 1, max(2, (h_max - 1) // node_step + 1))
+    ).astype(np.int64)
+    xs = np.round(
+        np.linspace(0, w_max - 1, max(2, (w_max - 1) // node_step + 1))
+    ).astype(np.int64)
+    # Symmetric grids let per-sample axis flips reuse reversed node values
+    # (ops/warp_banded.py).
+    ys = np.unique(np.concatenate([ys, h_max - 1 - ys]))
+    xs = np.unique(np.concatenate([xs, w_max - 1 - xs]))
+
+    coarse_y = np.empty((n, len(ys), len(xs)), dtype=np.float32)
+    coarse_x = np.empty((n, len(ys), len(xs)), dtype=np.float32)
+    for idx, entry in enumerate(map_list):
+        if not isinstance(entry, tuple):
+            if getattr(entry, 'is_lattice', False):
+                res = lattice_node_maps(entry, ys, xs)
+                if res is not None:
+                    coarse_y[idx], coarse_x[idx] = res
+                    continue
+                entry = plan_backward_maps(entry, entry.src_shape)[:2]
+            else:
+                cy, cx = _matrix_nodes(entry, ys, xs)
+                coarse_y[idx] = cy
+                coarse_x[idx] = cx
+                continue
+        my, mx = entry
+        h, w = shapes[idx]
+        if h == h_max and w == w_max:
+            coarse_y[idx] = my[np.ix_(ys, xs)]
+            coarse_x[idx] = mx[np.ix_(ys, xs)]
+            continue
+        # Linear extension beyond this sample's dst canvas (same rule as
+        # the dense padding path): extend columns then rows.
+        ys_in = np.minimum(ys, h - 1)
+        xs_in = np.minimum(xs, w - 1)
+        cy = my[np.ix_(ys_in, xs_in)].astype(np.float64)
+        cx = mx[np.ix_(ys_in, xs_in)].astype(np.float64)
+        over_x = xs > w - 1
+        if over_x.any() and w > 1:
+            # Local edge slope (8-px window) — see plan_backward_maps.
+            dl = min(w - 1, 8)
+            step_x = (mx[ys_in, w - 1] - mx[ys_in, w - 1 - dl]) / dl
+            step_y = (my[ys_in, w - 1] - my[ys_in, w - 1 - dl]) / dl
+            d = (xs[over_x] - (w - 1)).astype(np.float64)
+            cx[:, over_x] = mx[ys_in, w - 1][:, None] + d[None, :] * step_x[:, None]
+            cy[:, over_x] = my[ys_in, w - 1][:, None] + d[None, :] * step_y[:, None]
+        over_y = ys > h - 1
+        if over_y.any() and h > 1:
+            inside = np.flatnonzero(~over_y)
+            last = inside[-1]
+            prev = inside[-2] if len(inside) > 1 else inside[-1]
+            gap = max(int(ys[last] - ys[prev]), 1)
+            step_cy = (cy[last] - cy[prev]) / gap
+            step_cx = (cx[last] - cx[prev]) / gap
+            d = (ys[over_y] - ys[last]).astype(np.float64)
+            cy[over_y] = cy[last][None, :] + d[:, None] * step_cy[None, :]
+            cx[over_y] = cx[last][None, :] + d[:, None] * step_cx[None, :]
+        coarse_y[idx] = cy
+        coarse_x[idx] = cx
+
+    return coarse_y, coarse_x, ys, xs
+
+
+class LazyCoverages:
+    """Per-sample coverage planes, materialized on ACCESS: the lattice
+    coverage is a host polygon rasterization per plan per batch, and no
+    hot caller consumes it (bench/synth gate by their own active masks).
+    Matrix/nop coverage is a zero-copy broadcast view."""
+
+    def __init__(self, plans):
+        self._plans = list(plans)
+        self._cache = {}
+
+    def __len__(self):
+        return len(self._plans)
+
+    def __getitem__(self, i):
+        if i not in self._cache:
+            plan = self._plans[i]
+            if getattr(plan, 'is_lattice', False):
+                from .distortion.warp_plan import warp_active_mask
+                self._cache[i] = warp_active_mask(plan).mat.astype(bool)
+            else:
+                self._cache[i] = np.broadcast_to(True, plan.dst_shape)
+        return self._cache[i]
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+
+def _bucket_pad(idx: np.ndarray, n: int,
+                ladder=(8, 16, 32, 64)) -> np.ndarray:
+    """Pad an index subset to a fixed bucket-size ladder (each sub-batch
+    size is a distinct compiled program; padding repeats the first index,
+    whose duplicate scatter writes are identical values)."""
+    for b in ladder:
+        if len(idx) <= b <= n:
+            return np.concatenate([
+                idx, np.full(b - len(idx), idx[0], dtype=idx.dtype)
+            ])
+    return idx
+
+
+# ---------------------------------------------------------------------------
+# Device side of the geometric warp.
+# ---------------------------------------------------------------------------
+
+
+_INTERP_W_CACHE: Dict[Tuple[int, bytes], np.ndarray] = {}
 
 
 def _interp_weights(length: int, nodes: np.ndarray, device) -> torch.Tensor:
     """(length, len(nodes)) float32 bilinear weights through node rows
     (the numbers of the reference's ``_interp_weights``, built by its
-    numpy twin ``interp_node_weights``)."""
-    return convert.to_tensor(
-        interp_node_weights(length, np.asarray(nodes)), device, torch.float32
-    )
+    numpy twin ``interp_node_weights``), cached by (length, node grid) as
+    host numpy where the reference caches a device array."""
+    key = (length, np.asarray(nodes).tobytes())
+    weights = _INTERP_W_CACHE.get(key)
+    if weights is None:
+        weights = interp_node_weights(length, np.asarray(nodes))
+        if len(_INTERP_W_CACHE) > 64:
+            _INTERP_W_CACHE.clear()
+        _INTERP_W_CACHE[key] = weights
+    return convert.to_tensor(weights, device, torch.float32)
 
 
 def _upsample(w_y, coarse, w_x):
@@ -642,7 +1078,7 @@ def _jpeg_bgr(images, luma, chroma):
     # BGR-compat: the reference encodes its RGB mats through cv.imencode,
     # which reads them as BGR; run the codec on reversed channels.
     device = images.device
-    out = jpeg_roundtrip_exact(
+    out = jpeg_roundtrip_exact_torch(
         images.flip(-1), convert.to_tensor(luma, device, torch.int32),
         convert.to_tensor(chroma, device, torch.int32),
     )
@@ -706,7 +1142,7 @@ def _batched_filter2d(images, kernels):
 
 
 def _prep_kernels(name, records, shape):
-    arrays, _ = _REFERENCE_CATALOG[name][0](records, shape, 0)
+    arrays, _ = _PREPS[name](records, shape, 0)
     return arrays['kernels']
 
 
@@ -891,7 +1327,7 @@ def _apply_ellipse_streak(images, seed, arrays, static):
 
 
 def _streak_via_prep(name, images, configs):
-    arrays, static = _REFERENCE_CATALOG[name][0](configs, images.shape, 0)
+    arrays, static = _PREPS[name](configs, images.shape, 0)
     return _CATALOG[name](images, 0, arrays, static)
 
 
@@ -998,9 +1434,374 @@ def _apply_zoom(images, seed, arrays, static):
 
 
 # ---------------------------------------------------------------------------
-# Per-name dispatch.  Each name's host prep (configs -> parameter arrays and
-# a static signature) is the reference's own, from its compiled catalog; the
-# apply below runs it on the device.  In eager PyTorch one function serves
+# Host preps (numpy): configs -> parameter arrays and a static signature, the
+# reference's own code from its compiled catalog.
+# ---------------------------------------------------------------------------
+
+
+# Shared blur-kernel widths: the padded width is a compiled-program
+# static, and batch-max padding drew a fresh width (hence a fresh XLA
+# program) nearly every randomized-policy batch.  A sparse odd ladder
+# keeps the compile set tiny; extra taps are zeros (a few ms of conv).
+_KERNEL_WIDTH_LADDER = (5, 9, 17, 33, 65)
+
+
+def _padded_kernels(kernels):
+    """Pad per-sample 2D kernels to a shared odd LADDER width."""
+    ksize = max(k.shape[0] for k in kernels)
+    if ksize % 2 == 0:
+        ksize += 1
+    for q in _KERNEL_WIDTH_LADDER:
+        if ksize <= q:
+            ksize = q
+            break
+    out = np.zeros((len(kernels), ksize, ksize), dtype=np.float32)
+    for idx, k in enumerate(kernels):
+        off_y = (ksize - k.shape[0]) // 2
+        off_x = (ksize - k.shape[1]) // 2
+        out[idx, off_y:off_y + k.shape[0], off_x:off_x + k.shape[1]] = k
+    return out
+
+
+def _field(configs, name):
+    return [getattr(cfg, name) for cfg in configs]
+
+
+def _uniform(configs, name):
+    values = _field(configs, name)
+    assert all(v == values[0] for v in values), (
+        f'{name} must be shared across the batch for the device path'
+    )
+    return values[0]
+
+
+def _chan(configs):
+    channels = _uniform(configs, 'channels')
+    return tuple(channels) if channels is not None else None
+
+
+def _chan_gate3(channels) -> np.ndarray:
+    """Per-channel 0/1 gate for a channels subset (None -> all)."""
+    gate = np.zeros(3, dtype=np.float32)
+    if channels is None:
+        gate[:] = 1.0
+    else:
+        gate[list(channels)] = 1.0
+    return gate
+
+
+def _f32(values):
+    return np.asarray(values, dtype=np.float32)
+
+
+def _prep_mean_shift(configs, shape, key):
+    deltas = _field(configs, 'delta')
+    thresholds = _field(configs, 'threshold')
+    arrays = {'deltas': _f32(deltas)}
+    has_thresholds = not all(t is None for t in thresholds)
+    if has_thresholds:
+        arrays['thresholds'] = _f32([
+            t if t is not None else (255 if d > 0 else 0)
+            for t, d in zip(thresholds, deltas)
+        ])
+    return arrays, (_chan(configs), _uniform(configs, 'oob_behavior'),
+                    has_thresholds)
+
+
+def _prep_complement(configs, shape, key):
+    ltes = _field(configs, 'enable_threshold_lte')
+    thresholds = _field(configs, 'threshold')
+    has_thresholds = not all(t is None for t in thresholds)
+    arrays = {}
+    if has_thresholds:
+        arrays['thresholds'] = _f32([
+            t if t is not None else (255 if lte else 0)
+            for t, lte in zip(thresholds, ltes)
+        ])
+        arrays['ltes'] = np.asarray(ltes, dtype=bool)
+    return arrays, (_chan(configs), has_thresholds)
+
+
+def _prep_brightness(configs, shape, key):
+    from ..element import ImageMode
+
+    mode = _uniform(configs, 'intermediate_image_mode')
+    return ({'deltas': _f32(_field(configs, 'delta'))},
+            (mode == ImageMode.HSV,))
+
+
+def _prep_jpeg(configs, shape, key):
+    qualities = _field(configs, 'quality')
+    luma = np.stack([
+        _quality_scaled_table(_LUMA_QTABLE, int(q)) for q in qualities
+    ]).astype(np.int32)
+    chroma = np.stack([
+        _quality_scaled_table(_CHROMA_QTABLE, int(q)) for q in qualities
+    ]).astype(np.int32)
+    return {'luma': luma, 'chroma': chroma}, ()
+
+
+def _prep_fog(configs, shape, key):
+    # fog_rgb rides as a traced (N, 3) array: as a static it keyed a
+    # fresh compiled program on every drawn color (unbounded compile set
+    # across randomized batches — the round-4 steady-state leak).
+    return ({
+        'roughnesses': _f32(_field(configs, 'roughness')),
+        'rmax': _f32(_field(configs, 'ratio_max')),
+        'rmin': _f32(_field(configs, 'ratio_min')),
+        'fog_rgb': np.asarray(_field(configs, 'fog_rgb'), np.float32),
+    }, ())
+
+
+def _gaussian_kernels(sigmas):
+    kernels = []
+    for sigma in np.asarray(sigmas):
+        ksize = estimate_gaussian_kernel_size(float(sigma))
+        k1 = blur_ops.gaussian_kernel1d(float(sigma), ksize)
+        kernels.append(np.outer(k1, k1))
+    return kernels
+
+
+def _prep_gaussian_blur(configs, shape, key):
+    kernels = _gaussian_kernels(_field(configs, 'sigma'))
+    return {'kernels': np.asarray(_padded_kernels(kernels))}, ()
+
+
+def _prep_defocus_blur(configs, shape, key):
+    kernels = []
+    for radius in _field(configs, 'radius'):
+        radius = int(radius)
+        size = 2 * radius + 1
+        coords = np.arange(size) - radius
+        xs, ys = np.meshgrid(coords, coords)
+        kernel = ((xs**2 + ys**2) <= radius**2).astype(np.float32)
+        kernels.append(kernel / kernel.sum())
+    return {'kernels': np.asarray(_padded_kernels(kernels))}, ()
+
+
+def _prep_motion_blur(configs, shape, key):
+    kernels = []
+    for radius, angle in zip(_field(configs, 'radius'),
+                             _field(configs, 'angle')):
+        ksize = 2 * int(radius) + 1
+        kernel = blur_ops.motion_line_kernel(ksize, -(float(angle) % 360))
+        kernels.append(kernel / max(kernel.sum(), 1e-6))
+    return {'kernels': np.asarray(_padded_kernels(kernels))}, ()
+
+
+def _prep_glass_blur(configs, shape, seed):
+    kernels = _gaussian_kernels(_field(configs, 'sigma'))
+    deltas = np.asarray(_field(configs, 'delta'), np.int32)
+    loops = np.asarray(_field(configs, 'loop'), np.int32)
+    dmax = int(deltas.max())
+    lmax = int(loops.max())
+    if dmax <= 2 and lmax <= 8:
+        return {
+            'kernels': np.asarray(_padded_kernels(kernels)),
+            'deltas': deltas,
+            'loops': loops,
+        }, ('rolls', dmax, 4 if lmax <= 4 else 8)
+
+    # Arbitrary delta/loop: host-built permutation + device gather (the
+    # gather lowers ~40x off roofline — only the long-tail configs pay).
+    from .distortion.photometric.blur import build_glass_blur_permutation
+
+    n, h, w = shape[:3]
+    rng = np.random.default_rng(int(seed) & 0x7FFFFFFF)
+    flat_idx = np.empty((n, h, w), dtype=np.int32)
+    for i, cfg in enumerate(configs):
+        pos_y, pos_x = build_glass_blur_permutation(
+            (h, w), int(cfg.delta), int(cfg.loop), rng
+        )
+        flat_idx[i] = pos_y * w + pos_x
+    return {
+        'kernels': np.asarray(_padded_kernels(kernels)),
+        'flat_idx': flat_idx.reshape(n, h * w),
+    }, ('gather',)
+
+
+def _prep_line_streak(configs, shape, key):
+    return {
+        'thickness': _f32(_field(configs, 'thickness')),
+        'gap': _f32(_field(configs, 'gap')),
+        'dash_thickness': _f32(_field(configs, 'dash_thickness')),
+        'dash_gap': _f32(_field(configs, 'dash_gap')),
+        'enable_vert': np.asarray(_field(configs, 'enable_vert'), bool),
+        'enable_hori': np.asarray(_field(configs, 'enable_hori'), bool),
+        'colors': _f32(_field(configs, 'color')),
+        'alphas': _f32(_field(configs, 'alpha')),
+    }, ()
+
+
+def _concentric_box_array(configs, shape, max_boxes_round: int = 8):
+    """(N, B, 4) float32 concentric frames (up, down, left, right), padded
+    with degenerate rows; B rounds up so compile count stays bounded."""
+    from .distortion.photometric.streak import concentric_boxes
+
+    n, h, w = shape[:3]
+    per_sample = []
+    for cfg in configs:
+        aspect = cfg.aspect_ratio if cfg.aspect_ratio is not None else w / h
+        boxes = concentric_boxes(h, w, aspect, cfg.short_side_min,
+                                 cfg.short_side_step)
+        per_sample.append([
+            (b.up, b.down, b.left, b.right) for b in boxes
+        ])
+    b_max = max((len(b) for b in per_sample), default=1)
+    # Power-of-two padding (min one round): the box count is a compiled
+    # static via the scan length.
+    padded = max_boxes_round
+    while padded < b_max:
+        padded *= 2
+    b_max = padded
+    out = np.full((n, b_max, 4), -1e6, dtype=np.float32)
+    for i, boxes in enumerate(per_sample):
+        if boxes:
+            out[i, :len(boxes)] = boxes
+    return out
+
+
+def _prep_rectangle_streak(configs, shape, key):
+    return {
+        'boxes': _concentric_box_array(configs, shape),
+        'thickness': _f32(_field(configs, 'thickness')),
+        'dash_thickness': _f32(_field(configs, 'dash_thickness')),
+        'dash_gap': _f32(_field(configs, 'dash_gap')),
+        'colors': _f32(_field(configs, 'color')),
+        'alphas': _f32(_field(configs, 'alpha')),
+    }, ()
+
+
+def _prep_ellipse_streak(configs, shape, key):
+    """Host-rasterized ring stencils (cv2-exact integer rasterization,
+    ops/cvraster.py via ellipse_ring_stencil) uploaded as jit arguments —
+    the device implicit-band form diverged from the cv pixel sets the
+    per-element path now reproduces.  Member sub-batches keep the upload
+    small (~0.4 MB per member at 640^2)."""
+    from .distortion.photometric.streak import (
+        concentric_boxes,
+        ellipse_ring_stencil,
+    )
+
+    n, h, w = shape[:3]
+    stencils = np.zeros((len(configs), h, w), dtype=np.uint8)
+    for i, cfg in enumerate(configs):
+        aspect = cfg.aspect_ratio if cfg.aspect_ratio is not None else w / h
+        boxes = concentric_boxes(
+            h, w, aspect, cfg.short_side_min, cfg.short_side_step
+        )
+        stencils[i] = ellipse_ring_stencil(
+            (h, w), (w // 2, h // 2),
+            [(b.width // 2, b.height // 2) for b in boxes],
+            int(cfg.thickness),
+        )
+    return {
+        'stencil': stencils,
+        'colors': _f32(_field(configs, 'color')),
+        'alphas': _f32(_field(configs, 'alpha')),
+    }, ()
+
+
+def _field_prep(field_names, *statics_fields):
+    """Prep factory: per-sample float arrays + uniform static fields."""
+    def prep(configs, shape, key):
+        arrays = {
+            name: _f32(_field(configs, name)) for name in field_names
+        }
+        static = tuple(
+            tuple(v) if isinstance(v, (list, tuple)) else v
+            for v in (
+                _uniform(configs, f) for f in statics_fields
+            )
+        )
+        return arrays, static
+    return prep
+
+
+def _prep_pixelation(configs, shape, key):
+    n, h, w = shape[:3]
+    rh = np.asarray([
+        max(1, round(h * cfg.ratio)) for cfg in configs
+    ], dtype=np.int32)
+    rw = np.asarray([
+        max(1, round(w * cfg.ratio)) for cfg in configs
+    ], dtype=np.int32)
+    return {'rh': rh, 'rw': rw}, ()
+
+
+_ZOOM_MAX_STEPS = 24
+
+
+def _prep_zoom(configs, shape, key):
+    n, h, w = shape[:3]
+    rhs = np.full((len(configs), _ZOOM_MAX_STEPS), h, dtype=np.int32)
+    rws = np.full((len(configs), _ZOOM_MAX_STEPS), w, dtype=np.int32)
+    counts = np.zeros(len(configs), dtype=np.int32)
+    for idx, cfg in enumerate(configs):
+        zooms = np.arange(1 + cfg.step, 1 + cfg.ratio + cfg.step, cfg.step)
+        if len(zooms) > _ZOOM_MAX_STEPS:
+            # The traced program unrolls _ZOOM_MAX_STEPS stages; deeper
+            # ladders would silently diverge from the reference's full
+            # average — no silent caps (the policy's level-10 maximum is
+            # ratio 0.4 / step 0.02 = 20 steps, so this only fires on
+            # hand-written extreme configs).
+            logger.warning(
+                'zoom_in_blur: ratio/step = %d zoom levels exceeds the '
+                'traced maximum %d; truncating (visually equivalent, not '
+                'reference-exact)', len(zooms), _ZOOM_MAX_STEPS,
+            )
+            zooms = zooms[:_ZOOM_MAX_STEPS]
+        counts[idx] = len(zooms)
+        for k, z in enumerate(zooms):
+            rhs[idx, k] = round(h * z)
+            rws[idx, k] = round(w * z)
+    return {
+        'rhs': rhs, 'rws': rws, 'count': counts,
+        'alpha': _f32(_field(configs, 'alpha')),
+    }, ()
+
+
+# The prep of each catalog name (the reference's _COMPILED_CATALOG preps).
+_PREPS = {
+    'mean_shift': _prep_mean_shift,
+    'color_shift': _field_prep(('delta',)),
+    'brightness_shift': _prep_brightness,
+    'std_shift': _field_prep(('scale',), 'channels'),
+    'boundary_equalization': _field_prep((), 'channels'),
+    'histogram_equalization': lambda configs, shape, key: ({
+        'chan_gate': np.stack([
+            _chan_gate3(getattr(c, 'channels', None)) for c in configs
+        ]),
+    }, ()),
+    'complement': _prep_complement,
+    'posterization': lambda configs, shape, key: (
+        {'num_bits': np.asarray(_field(configs, 'num_bits'), np.int32)},
+        (_chan(configs),),
+    ),
+    'color_balance': _field_prep(('ratio',)),
+    'channel_permutation': _field_prep(()),
+    'gaussion_noise': _field_prep(('std',)),
+    'poisson_noise': _field_prep(()),
+    'impulse_noise': _field_prep(('prob_salt', 'prob_pepper')),
+    'speckle_noise': _field_prep(('std',)),
+    'jpeg_quality': _prep_jpeg,
+    'pixelation': _prep_pixelation,
+    'fog': _prep_fog,
+    'gaussian_blur': _prep_gaussian_blur,
+    'defocus_blur': _prep_defocus_blur,
+    'motion_blur': _prep_motion_blur,
+    'glass_blur': _prep_glass_blur,
+    'zoom_in_blur': _prep_zoom,
+    'line_streak': _prep_line_streak,
+    'rectangle_streak': _prep_rectangle_streak,
+    'ellipse_streak': _prep_ellipse_streak,
+}
+
+
+# ---------------------------------------------------------------------------
+# Per-name dispatch.  Each name's host prep (``_PREPS``) turns its configs
+# into parameter arrays and a static signature; the apply below runs it on
+# the device.  In eager PyTorch one function serves
 # both of the reference's dispatches: its full / masked / sub modes, the
 # 8-slot sub-batch padding and the kernel-width ladder only keyed XLA's
 # compile cache.  A member sub-batch is gathered exactly, distorted and
@@ -1104,7 +1905,7 @@ _CATALOG = {
     'rectangle_streak': _apply_rectangle_streak,
     'ellipse_streak': _apply_ellipse_streak,
 }
-assert set(_CATALOG) == set(_REFERENCE_CATALOG)
+assert set(_CATALOG) == set(_PREPS)
 
 # The catalog names that draw from the device generator: the port matches
 # the reference on them in distribution only.
@@ -1128,7 +1929,7 @@ def batch_distort_members(name: str, group, images, seed: int):
     n = images.shape[0]
     idx = [sample_idx for sample_idx, _ in group]
     configs = [config for _, config in group]
-    prep = _REFERENCE_CATALOG[name][0]
+    prep = _PREPS[name]
     arrays, static = prep(configs, (len(idx),) + tuple(images.shape[1:]),
                           seed)
     apply = _CATALOG[name]
@@ -1144,6 +1945,8 @@ def batch_distort_grouped(name: str, members, images, seed: int):
     that share the reference's static signature apply together, in
     signature order, and a group whose prep refuses it (a shape-static
     field outside the signature differs) applies member by member."""
+    from .batched_random import _PER_SAMPLE_ONLY, _static_signature
+
     if name in _PER_SAMPLE_ONLY:
         groups = [[m] for m in members]
     else:

@@ -6,8 +6,10 @@ Port of vkit_tpu/mechanism/batched_random.py
 ``batch_random_distort``.  The policy draws are the reference's own host
 samplers, called in the same order on the same rng, so the same rng gives
 the same policies, configs and plans, draw for draw, and leaves the rng in
-the same state.  The reference's jax ``key`` becomes an integer ``seed``
-that takes the place of the drawn base seed.
+the same state.  Those samplers (``sample_geometric_plans``, the static
+signature that groups a name's members) are the reference's own code.  The
+reference's jax ``key`` becomes an integer ``seed`` that takes the place of
+the drawn base seed.
 """
 import zlib
 from collections import defaultdict
@@ -17,17 +19,74 @@ import numpy as np
 import torch
 from numpy.random import Generator as RandomGenerator
 
-from vkit_tpu.element import Box, Mask
-from vkit_tpu.mechanism.batched_random import sample_geometric_plans
-from vkit_tpu.mechanism.distortion.warp_plan import warp_active_mask
-from vkit_tpu.mechanism.distortion_policy.random_distortion import (
+from ..element import Box, Mask
+from .batched import batch_distort_grouped, batched_plan_warp
+from .distortion.warp_plan import warp_active_mask
+from .distortion_policy.random_distortion import (
     RandomDistortionStage,
     RandomDistortionStageConfig,
     random_distortion_factory,
 )
-
-from .batched import batch_distort_grouped, batched_plan_warp
 from .photometric_program import apply_mega_round, mega_covers
+
+# Shape-changing params used to force per-sample applies; pixelation and
+# zoom_in_blur now build their resize matrices from TRACED sizes
+# (batched.py _apply_pixelation_traced / _apply_zoom_traced), so nothing
+# needs the per-sample path anymore.
+_PER_SAMPLE_ONLY = ()
+
+# Config fields that select the traced program's STRUCTURE (channel subset,
+# clip-vs-cycle, gate direction) rather than feeding it numerically; a
+# batched apply can only share members whose static fields agree.
+_STATIC_FIELDS = ('channels', 'oob_behavior', 'enable_threshold_lte')
+
+# Ops whose former static fields now ride as TRACED arrays (batched.py
+# compiled catalog): members group together regardless of channel subset
+# or drawn color — one dispatch, one compiled program.
+_NO_STATIC_GROUPING = frozenset({'histogram_equalization', 'fog'})
+
+
+def _static_signature(name: str, config) -> tuple:
+    if name in _NO_STATIC_GROUPING:
+        return ()
+    return tuple(
+        (field, repr(getattr(config, field)))
+        for field in _STATIC_FIELDS
+        if hasattr(config, field)
+    )
+
+
+def sample_geometric_plans(
+    batch_size: int,
+    shape,
+    level: int,
+    rng: RandomGenerator,
+    stage_config: Optional[RandomDistortionStageConfig] = None,
+):
+    """One WarpPlan per sample from the geometric policy stage (exactly-one
+    policy draw, maybe disabled -> nop plan), same rng discipline as the
+    per-element RandomDistortion."""
+    from .distortion.warp_plan import nop_plan
+
+    if stage_config is None:
+        from .distortion_policy.random_distortion import (
+            random_distortion_factory,
+        )
+        stage_config = random_distortion_factory.create_geometric_stage_config()
+    stage = RandomDistortionStage(stage_config)
+
+    height, width = shape
+    plans = []
+    for _ in range(batch_size):
+        plan = None
+        if rng.random() <= stage_config.prob_enable:
+            drawn = stage.sample_distortion_policies(rng)
+            if drawn:
+                policy = drawn[0]
+                config = policy.sample_config(level, (height, width), rng)
+                plan = policy.distortion.plan(config, (height, width), rng)
+        plans.append(plan if plan is not None else nop_plan((height, width)))
+    return plans
 
 
 def sample_photometric_sequences(

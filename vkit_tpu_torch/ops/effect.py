@@ -12,15 +12,43 @@ noise drawn for the whole batch at once (fog runs it at 1024 x 1024 for a
 """
 import math
 
+import numpy as np
 import torch
 
-from vkit_tpu.ops.effect import (  # noqa: F401 - host tables, re-exported
-    _CHROMA_QTABLE,
-    _LUMA_QTABLE,
-    _quality_scaled_table,
-)
-
 from .resize import Interpolation, resize_weights
+
+# libjpeg base quantization tables (Annex K of the JPEG standard).
+_LUMA_QTABLE = np.array([
+    [16, 11, 10, 16, 24, 40, 51, 61],
+    [12, 12, 14, 19, 26, 58, 60, 55],
+    [14, 13, 16, 24, 40, 57, 69, 56],
+    [14, 17, 22, 29, 51, 87, 80, 62],
+    [18, 22, 37, 56, 68, 109, 103, 77],
+    [24, 35, 55, 64, 81, 104, 113, 92],
+    [49, 64, 78, 87, 103, 121, 120, 101],
+    [72, 92, 95, 98, 112, 100, 103, 99],
+], dtype=np.float64)
+
+_CHROMA_QTABLE = np.array([
+    [17, 18, 24, 47, 99, 99, 99, 99],
+    [18, 21, 26, 66, 99, 99, 99, 99],
+    [24, 26, 56, 99, 99, 99, 99, 99],
+    [47, 66, 99, 99, 99, 99, 99, 99],
+    [99, 99, 99, 99, 99, 99, 99, 99],
+    [99, 99, 99, 99, 99, 99, 99, 99],
+    [99, 99, 99, 99, 99, 99, 99, 99],
+    [99, 99, 99, 99, 99, 99, 99, 99],
+], dtype=np.float64)
+
+
+def _quality_scaled_table(base: np.ndarray, quality: int) -> np.ndarray:
+    quality = int(np.clip(quality, 1, 100))
+    if quality < 50:
+        scale = 5000 // quality    # INTEGER division (jcparam.c)
+    else:
+        scale = 200 - quality * 2
+    table = (base.astype(np.int64) * scale + 50) // 100
+    return np.clip(table, 1, 255)
 
 
 def diamond_square_mask(generator, size: int, roughnesses):

@@ -1,8 +1,8 @@
 """Glyph and overlay compositing: alpha-blend resampled tiles onto pages.
 
 Port of vkit_tpu/ops/glyph.py ``_resample_weights``, ``composite_glyphs``
-and ``composite_patches``, plus ``build_placements``, whose twin here keeps
-the placement table in host numpy.
+and ``composite_patches``, plus ``GlyphPlacements`` and ``build_placements``,
+whose twin here keeps the placement table in host numpy.
 
 Each placement row resamples its atlas tile to its destination box with
 bilinear tap-weight products (half-pixel centers, cv2 INTER_LINEAR) and
@@ -18,12 +18,34 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from vkit_tpu.ops.glyph import GlyphPlacements
-
 from .. import convert
 from .warp import to_image_dtype
 
 _ROW_CHUNK = 256
+
+
+class GlyphPlacements(NamedTuple):
+    """One row per glyph quad (the reference's table).
+
+    Destination boxes use UNPADDED canvas coordinates; `up`/`left` may be
+    negative down to -out_tile (the compositor pads the canvas).  Rows with
+    ``valid == 0`` are no-ops (bucket padding).  Fields hold numpy arrays on
+    the host and tensors once moved to a device (convert.glyph_placements).
+    """
+    glyph_ids: np.ndarray     # (G,) i32 — atlas tile index
+    sample_ids: np.ndarray    # (G,) i32 — batch sample
+    ups: np.ndarray           # (G,) i32 — dst box up (canvas coords)
+    lefts: np.ndarray         # (G,) i32
+    dst_hs: np.ndarray        # (G,) i32 — dst box extents, <= out_tile
+    dst_ws: np.ndarray        # (G,) i32
+    src_hs: np.ndarray        # (G,) f32 — glyph ink extents inside the tile
+    src_ws: np.ndarray        # (G,) f32
+    colors: np.ndarray        # (G, C) f32 — blend color per glyph
+    valids: np.ndarray        # (G,) f32 in {0, 1}
+
+    @property
+    def num_rows(self) -> int:
+        return int(self.glyph_ids.shape[0])
 
 
 def build_placements(rows, num_channels: int = 3,

@@ -1,7 +1,7 @@
 """Device-side resize weights (from vkit_tpu/ops/resize.py).
 
-The weight matrices are the reference's own, built on the host by
-vkit_tpu's numpy ``build_resize_weights``; the fog field
+The weight matrices are the reference's own, built on the host by the
+numpy ``build_resize_weights`` (ops/resize_taps.py); the fog field
 (ops/effect.py) upsamples its octaves with them.
 """
 import functools
@@ -9,7 +9,7 @@ import functools
 import numpy as np
 import torch
 
-from vkit_tpu.ops.resize_taps import Interpolation, build_resize_weights
+from .resize_taps import Interpolation, build_resize_weights
 
 __all__ = ['Interpolation', 'resize_weights']
 

@@ -5,8 +5,10 @@ Port of vkit_tpu/synth/device.py: ``_composite_overlays``,
 ``_extract_crops_program``, ``_finish_program_const``, ``_finish_program``,
 ``synthesize_page_batch`` and ``synthesize_stream``.  Host work (page prep,
 plan sampling, active masks, polygon co-transform, crop-window sampling)
-is the reference's own code, called in the same order with the same rng,
-so plans and crop windows match the JAX run draw for draw.
+is the reference's own code (``_sample_crop_windows``,
+``_split_oversized_overlay``, ``_affine_stretches``, the result types),
+called in the same order with the same rng, so plans and crop windows match
+the JAX run draw for draw.
 
 The photometric stage is on by default, as in the reference: its policy
 draws come from the same ``rng`` before the geometric plans do.  Not ported
@@ -16,39 +18,204 @@ the text-region stream (slice 5).
 import contextlib
 import queue
 import threading
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from numpy.random import Generator as RandomGenerator
 
-from vkit_tpu.element import Box, Polygon
-from vkit_tpu.engine.font.atlas import global_atlas_pack
-from vkit_tpu.mechanism.batched_random import sample_geometric_plans
-from vkit_tpu.mechanism.distortion.warp_plan import (
+from .. import convert
+from ..element import Box, Polygon
+from ..engine.font.atlas import global_atlas_pack, pack_placements
+from ..mechanism.batched import batched_plan_warp
+from ..mechanism.batched_random import (
+    batch_random_photometric_distort,
+    sample_geometric_plans,
+)
+from ..mechanism.distortion.warp_plan import (
     nop_plan,
     plan_content_box,
     rescale_plan_to,
     warp_active_mask,
 )
-from vkit_tpu.synth.device import (
-    _OVERLAY_TILE_LADDER,
-    CropConfig,
-    SynthBatchResult,
-    _affine_stretches,
-    _sample_crop_windows,
-    _split_oversized_overlay,
-)
-from vkit_tpu.synth.prep import CHAR_HEIGHT, TEXT_LINE_HEIGHT, HostPage
-
-from .. import convert
-from ..engine.font.atlas import pack_placements
-from ..mechanism.batched import batched_plan_warp
-from ..mechanism.batched_random import batch_random_photometric_distort
 from ..ops.glyph import build_placements, composite_glyphs, composite_patches
+from .prep import CHAR_HEIGHT, TEXT_LINE_HEIGHT, HostPage
 
 __all__ = ['CropConfig', 'SynthBatchResult', 'synthesize_page_batch',
            'synthesize_stream']
+
+
+# ---------------------------------------------------------------------------
+# Host half (numpy): result types, overlay splitting, crop windows.
+# ---------------------------------------------------------------------------
+
+
+_OVERLAY_TILE_LADDER = (64, 128, 192, 256, 384, 512)
+
+
+def _split_oversized_overlay(sid, e, tile):
+    """Chop a stamp larger than the tile ladder into <= tile sub-entries
+    (adjacent, non-overlapping, so z-order within the stamp is moot).
+    The reference assembler composites stamps of ANY size
+    (vkit/pipeline/text_detection/page_assembler.py:154-274) — content
+    must never be size-dropped."""
+    import attr
+
+    h, w = e.alpha.shape
+    out = []
+    for r0 in range(0, h, tile):
+        for c0 in range(0, w, tile):
+            r1, c1 = min(r0 + tile, h), min(c0 + tile, w)
+            out.append((sid, attr.evolve(
+                e,
+                alpha=e.alpha[r0:r1, c0:c1],
+                rgb=None if e.rgb is None else e.rgb[r0:r1, c0:c1],
+                up=e.up + r0,
+                left=e.left + c0,
+            )))
+    return out
+
+
+class SynthBatchResult(NamedTuple):
+    images: np.ndarray          # (N, out_h, out_w, 3) uint8
+    label_stack: np.ndarray     # (N, out_h, out_w, 4) float32 (see prep.py)
+    active_masks: np.ndarray    # (N, out_h, out_w) uint8
+    content_boxes: Sequence[Box]          # per-sample active bounding boxes
+    word_polygons: Sequence[List[Polygon]]   # co-transformed, out coords
+    char_polygons: Sequence[List[Polygon]]
+    # Device-extracted training crops (page_cropping.py on device);
+    # empty arrays when cropping is disabled.
+    crop_images: Optional[np.ndarray] = None    # (M, S, S, 3) uint8
+    crop_labels: Optional[np.ndarray] = None    # (M, S, S, 4) float32
+    crop_active: Optional[np.ndarray] = None    # (M, S, S) uint8
+    crop_page_ids: Optional[np.ndarray] = None  # (M,) int32
+    crop_windows: Optional[np.ndarray] = None   # (M, 2) int32 (up, left)
+    # Real crop count: with keep_on_device the crop tensors stay PADDED
+    # to a power of two on device (static compiled shapes) and rows
+    # beyond num_crops are duplicates of row 0.
+    num_crops: int = 0
+    # Per-char gaussian heatmaps (char_heatmap engine semantics, rendered
+    # ON DEVICE from the post-warp char quads); None unless requested.
+    char_gaussian_maps: Optional[np.ndarray] = None  # (N, out_h, out_w) f32
+    # Raw co-transformed char quads, (G, 4, 2) float64 per page — the
+    # same geometry as char_polygons without the per-object overhead;
+    # the region stream's hot host loops consume these.  None per page
+    # only if a char polygon were not a quad (prep always emits quads).
+    char_quads: Optional[Sequence[Optional[np.ndarray]]] = None
+    # The adaptive-scaling output family (synth/region.py): stacked
+    # region pages + char regression labels + region crops; None unless
+    # a RegionStreamConfig was passed.
+    text_regions: Optional[object] = None  # RegionBatchResult
+
+
+class CropConfig(NamedTuple):
+    """Device cropping knobs (page_cropping.py semantics: N random crops
+    + filters; extraction runs as one device program over the warped
+    stack, no full-page readback needed to sample windows)."""
+    core_size: int
+    num_per_page: int = 2
+    text_ratio_min: float = 0.025
+    active_ratio_min: float = 0.4
+    retries: int = 10
+
+
+def _sample_crop_windows(
+    out_shape: Tuple[int, int],
+    content_boxes: Sequence[Box],
+    word_polygons: Sequence[List[Polygon]],
+    crop: 'CropConfig',
+    rng: RandomGenerator,
+):
+    """Per-page crop windows from ANALYTIC info only (content boxes +
+    co-transformed word polygons): the text/active filters of
+    page_cropping.py:87 evaluated on polygon bounding boxes instead of
+    label rasters, so no device->host readback gates the sampling.
+
+    ``active_ratio_min`` is enforced on the content-box BBOX — an upper
+    bound on true raster coverage, so for strongly rotated/warped pages
+    a crop the reference's raster filter would reject (true active ratio
+    below the threshold) can still be emitted.  The text_ratio filter
+    (word-polygon bboxes, tight) dominates in practice."""
+    h, w = out_shape
+    s = crop.core_size
+    sample_ids: List[int] = []
+    ups: List[int] = []
+    lefts: List[int] = []
+    for idx, (cbox, words) in enumerate(zip(content_boxes, word_polygons)):
+        if h < s or w < s:
+            continue
+        boxes = []
+        for poly in words:
+            xy = poly.np_xy
+            boxes.append((xy[:, 1].min(), xy[:, 1].max(),
+                          xy[:, 0].min(), xy[:, 0].max()))
+        boxes_np = np.asarray(boxes, dtype=np.float64) if boxes else None
+
+        def window_ok(up: int, left: int) -> bool:
+            if boxes_np is not None:
+                iu = np.maximum(boxes_np[:, 0], up)
+                id_ = np.minimum(boxes_np[:, 1], up + s - 1)
+                il = np.maximum(boxes_np[:, 2], left)
+                ir = np.minimum(boxes_np[:, 3], left + s - 1)
+                area = (np.maximum(id_ - iu + 1, 0)
+                        * np.maximum(ir - il + 1, 0)).sum()
+                if area / (s * s) < crop.text_ratio_min:
+                    return False
+            elif crop.text_ratio_min > 0:
+                return False
+            au = max(cbox.up, up)
+            ad = min(cbox.down, up + s - 1)
+            al = max(cbox.left, left)
+            ar = min(cbox.right, left + s - 1)
+            active = max(ad - au + 1, 0) * max(ar - al + 1, 0)
+            return active / (s * s) >= crop.active_ratio_min
+
+        accepted = 0
+        for _ in range(crop.num_per_page):
+            placed = False
+            for _ in range(crop.retries):
+                up = int(rng.integers(0, h - s + 1))
+                left = int(rng.integers(0, w - s + 1))
+                if window_ok(up, left):
+                    placed = True
+                    break
+            if not placed:
+                # Centered-on-content fallback (the reference's center
+                # crop), clamped to the canvas.
+                up = int(np.clip((cbox.up + cbox.down) // 2 - s // 2,
+                                 0, h - s))
+                left = int(np.clip((cbox.left + cbox.right) // 2 - s // 2,
+                                   0, w - s))
+                if not window_ok(up, left):
+                    continue
+            sample_ids.append(idx)
+            ups.append(up)
+            lefts.append(left)
+            accepted += 1
+    return (np.asarray(sample_ids, dtype=np.int32),
+            np.asarray(ups, dtype=np.int32),
+            np.asarray(lefts, dtype=np.int32))
+
+
+def _affine_stretches(plans) -> np.ndarray:
+    """Per-sample constant vertical stretch of affine/nop plans: the
+    inverse of how many source pixels one dst row step covers."""
+    out = np.ones(len(plans), dtype=np.float32)
+    for i, plan in enumerate(plans):
+        if plan.matrix is None:
+            continue
+        mat3 = np.eye(3, dtype=np.float64)
+        m = np.asarray(plan.matrix, dtype=np.float64)
+        mat3[:m.shape[0]] = m
+        inv = np.linalg.inv(mat3)
+        step = float(np.hypot(inv[0, 1], inv[1, 1]))
+        out[i] = 1.0 / max(step, 1e-3)
+    return np.clip(out, 0.05, 20.0)
+
+
+# ---------------------------------------------------------------------------
+# Device program.
+# ---------------------------------------------------------------------------
 
 
 def _composite_overlays(assembled, overlay):
