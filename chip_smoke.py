@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (vkit_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels-only]
+
+``--kernels-only`` stops after phase 3 (to time the kernels of two
+revisions in turns within one call); it prints no final result line.
 
 Phases, one line each (plus detail lines):
   1. environment: torch / CUDA versions, the card's name and power limit,
@@ -15,15 +18,21 @@ Phases, one line each (plus detail lines):
      same function) and its bound (the bytes the call must move over the
      card's memory rate, or its operations over the float32 rate).  K1
      (row_shift_window_slab) and K3 (banded_line_resample) run at the
-     arguments of their first launch in one synth-640 batch, captured
-     there with their launches per batch; K1 also at starts that wrap mod
-     2048 and K3 at each rung of its tap ladder, for exactness only.  K4
-     (row_shift_window), which no path calls, runs at K1's captured rows'
-     RGB planes, one plane per row; K2 (row_shift), which only the spread
-     split routes, at a 1400-lane source cut to 700 outputs;
-  4. main path: full-content 640x640 pages through synthesize_stream
-     (batch 8, level 5, two 512x512 crops per page, the photometric stage
-     on as by default), RandomDistortion at bench config 5's shape (32 x
+     arguments of their first launch in one synth-640 batch (the page
+     warp's), captured there with their launches per batch; K1 also at its
+     largest launch of another shape in that batch (the region flatten's),
+     at starts that wrap mod 2048, and K3 at each rung of its tap ladder,
+     the last two for exactness only.  K4 (row_shift_window), which no path
+     calls, runs at K1's captured rows' RGB planes, one plane per row; K2
+     (row_shift), which only the spread split routes, at a 1400-lane
+     source cut to 700 outputs, and for exactness at odd widths, the widest
+     output, starts that clamp and rows off 16-byte alignment;
+  4. main path: full-content 640x640 pages through synthesize_stream as
+     bench config 6 calls it (batch 8, level 5, two 512x512 crops per
+     page, the photometric stage on as by default, the text-region stream
+     on: stacked 640x640 region pages, two 320x320 region crops per stacked
+     page, everything kept on the device), RandomDistortion at bench
+     config 5's shape (32 x
      640x640 uint8 + 2 label channels: the photometric stage, then the
      geometric plans rescaled to 704x704 and one batched_plan_warp), the
      random geometric distortion of 32 x 640x640 x 5 channels, and two-page
@@ -32,9 +41,12 @@ Phases, one line each (plus detail lines):
      just after; K1-K3 must have launched.  Outputs must be finite with the
      expected shapes, and 320x320 batches on the card must agree with the
      same batches on the CPU: synthesis with the photometric stage off, and
-     the photometric stage restricted to its deterministic ops.  Then,
-     outside the counted run: synthesize_page_batch's own stage spans
-     (the photometric stage's seconds per 8-page batch), and
+     the text-region stream on (stacked pages within 1 LSB but for
+     outline pixels), and the photometric stage restricted to its
+     deterministic ops.  Then, outside the counted run: the stream with
+     the text-region stream off (the earlier main path's rate), one batch
+     with char gaussian maps, synthesize_page_batch's own stage spans
+     (``region`` and its five sub-spans included), and
      RandomDistortion images/s over bench config 5's step, label
      co-transform and content boxes included (8 warm-ups, 6 timed steps);
   5. photometric catalog: each of the 25 catalog names once over 8 x
@@ -44,7 +56,8 @@ Phases, one line each (plus detail lines):
      same call on the CPU; rng-consuming ops to their configs' moments.
 Then one JSON line of per-kernel results, the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Any failure raises (exit code != 0).
-`launches` in the JSON line counts the phase-4 run only, so K4 reads 0.
+`launches` in the JSON line counts the phase-4 run only, so K4 reads 0;
+the launches of one synth-640 batch are on phase 3's capture line.
 Parity with the CPU assumes TF32 off for matmuls and cuDNN, as set here.
 The script needs a CUDA card and the rest of the repository beside it.
 """
@@ -87,6 +100,11 @@ PEAK_F32_PER_S = 67e12
 # Why K3 has no library yardstick.
 K3_NO_LIBRARY = ('no single PyTorch call computes the two-tap hat resample '
                  'masked to [0, taps) through the 2048-lane window')
+# Share of a stacked region page's pixels that may differ between the card
+# and the CPU: the polygon test, the warped alpha and the coverage each
+# threshold a float32 value, so a last-bit difference flips a pixel on a
+# region's outline.
+REGION_EDGE_SHARE = 2e-3
 # Photometric ops that round an HSV / HSL intermediate to uint8.
 HSV_ROUNDING = frozenset({'color_shift', 'brightness_shift'})
 
@@ -126,7 +144,8 @@ def probe_host_libraries():
 
 def import_the_port() -> int:
     """Imports every module of vkit_tpu_torch; fails if that loaded jax,
-    flax, optax or any vkit_tpu module.  Returns the module count."""
+    flax, optax, sklearn or any vkit_tpu module.  Returns the module
+    count."""
     import vkit_tpu_torch
 
     names = [info.name for info in pkgutil.walk_packages(
@@ -134,7 +153,8 @@ def import_the_port() -> int:
     for name in names:
         importlib.import_module(name)
     loaded = sorted(name for name in sys.modules if name.split('.')[0] in
-                    ('jax', 'jaxlib', 'flax', 'optax', 'vkit_tpu'))
+                    ('jax', 'jaxlib', 'flax', 'optax', 'sklearn',
+                     'vkit_tpu'))
     check(not loaded, f'importing the port loaded {loaded[:8]}')
     return len(names)
 
@@ -336,27 +356,41 @@ def compare(name, kernel_fn, plain_fn, tol: float, work, library_fn=None):
 def capture_main_path_args(device, planner, seed: int = 400, batch: int = 8,
                            side: int = 640):
     """Runs one synth-640 batch (level 5, two crops per page, photometric
-    stage on) with recorders around the K1 and K3 wrappers that
-    ops/warp_mxu.py and ops/warp_banded.py call.  Returns {kernel: (args,
-    kwargs) of its first launch, copied} and the batch's launches per
-    kernel.  Untimed, and outside the counted main-path run."""
+    stage and text-region stream on) with recorders around the K1 and K3
+    wrappers that ops/warp_mxu.py and ops/warp_banded.py call.  Returns
+    {kernel: (args, kwargs) of its first launch, copied}, under
+    'row_shift_window_slab/flatten' K1's largest launch of another shape
+    (the region flatten's), and the batch's launches per kernel.  Untimed,
+    and outside the counted main-path run."""
     import torch
 
     from vkit_tpu_torch.ops import kernels as K
     from vkit_tpu_torch.ops import warp_banded, warp_mxu
-    from vkit_tpu_torch.synth import CropConfig, synthesize_page_batch
+    from vkit_tpu_torch.synth import (
+        CropConfig,
+        RegionStreamConfig,
+        synthesize_page_batch,
+    )
 
     captured = {}
+    flatten = 'row_shift_window_slab/flatten'
     sites = ((warp_mxu, 'row_shift_window_slab'),
              (warp_banded, 'banded_line_resample'))
     originals = [getattr(module, name) for module, name in sites]
 
+    def copied(args, kwargs):
+        return ([a.clone() if isinstance(a, torch.Tensor) else a
+                 for a in args], dict(kwargs))
+
     def recorder(name, real):
         def record(*args, **kwargs):
             if name not in captured:
-                captured[name] = (
-                    [a.clone() if isinstance(a, torch.Tensor) else a
-                     for a in args], dict(kwargs))
+                captured[name] = copied(args, kwargs)
+            elif (name == 'row_shift_window_slab'
+                  and args[0].shape != captured[name][0][0].shape
+                  and (flatten not in captured or args[0].numel()
+                       > captured[flatten][0][0].numel())):
+                captured[flatten] = copied(args, kwargs)
             return real(*args, **kwargs)
         return record
 
@@ -368,22 +402,24 @@ def capture_main_path_args(device, planner, seed: int = 400, batch: int = 8,
         for (module, name), real in zip(sites, originals):
             setattr(module, name, recorder(name, real))
         try:
-            synthesize_page_batch(pages, 5, rng, crop_config=crop,
-                                  keep_on_device=True, device=device)
+            synthesize_page_batch(
+                pages, 5, rng, crop_config=crop,
+                region_config=RegionStreamConfig(num_crops_per_page=2),
+                keep_on_device=True, device=device)
             sync(device)
         finally:
             for (module, name), real in zip(sites, originals):
                 setattr(module, name, real)
         launches = {name: K.LAUNCHES[name] - before[name]
-                    for name in ('row_shift_window_slab',
-                                 'banded_line_resample')}
-        if len(captured) == len(sites):
+                    for name in K.LAUNCHES}
+        if len(captured) == len(sites) + 1:
             return captured, launches
         log(f'    capture batch {attempt}: launches {launches}; '
             'drawing another batch')
         captured.clear()
         before = dict(K.LAUNCHES)
-    raise RuntimeError('chip_smoke: no synth-640 batch launched K1 and K3')
+    raise RuntimeError('chip_smoke: no synth-640 batch launched K1 (page '
+                       'warp and region flatten) and K3')
 
 
 def window_read_floats(starts, width: int, out_width: int) -> int:
@@ -504,6 +540,20 @@ def kernel_phase(device, captured):
         lambda: K.row_shift_window_slab_plain(x, wrap, ow, border), tol=0.0)
     check(exact, 'row_shift_window_slab wrap: not bit-exact')
 
+    # K1 at its largest launch in the region flatten of that batch.
+    (xf, sf, owf), kwargs = captured['row_shift_window_slab/flatten']
+    border_f = float(kwargs.get('border_value', 0.0))
+    results['row_shift_window_slab/flatten'] = compare(
+        'row_shift_window_slab (region flatten)',
+        lambda: K.row_shift_window_slab(xf, sf, owf, border_f),
+        lambda: K.row_shift_window_slab_plain(xf, sf, owf, border_f),
+        tol=0.0, work=window_work(xf, sf, owf),
+        library_fn=window_gather_library(xf, sf, owf, border_f),
+    )
+    results['row_shift_window_slab/flatten']['shape'] = (
+        f'{tuple(xf.shape)} -> {owf}')
+    del xf, sf
+
     # K4 at the captured rows' RGB planes, one plane per row.
     x4 = x[:, :, :3].reshape(x.shape[0], x.shape[1] * 3, x.shape[3])
     s4 = starts.repeat_interleave(3, dim=1).contiguous()
@@ -566,6 +616,32 @@ def kernel_phase(device, captured):
     results['row_shift']['shape'] = f'{tuple(x_p.shape)} -> {m_shift}'
     log(f'    row_shift statics: {statics}')
     del x_p, rows, idx2
+    # Exactness only: widths that are no multiple of 4, the widest output,
+    # the narrowest padded row, starts outside the contract (each index
+    # clamps into its row), and rows one float off 16-byte alignment.
+    for m_p, width, kind in ((1536, 401, 'contract'), (1536, 896, 'contract'),
+                             (1024, 640, 'zero'), (1100, 3, 'contract'),
+                             (1280, 702, 'outside')):
+        shape = (3, 517, m_p)
+        if kind == 'zero':
+            st = np.zeros(shape[:2], np.int32)
+        elif kind == 'contract':
+            st = gen.integers(0, m_p - K.ROLL_WINDOW + 1, shape[:2])
+        else:
+            st = gen.integers(-2 * m_p, 2 * m_p, shape[:2])
+            st[0, :4] = (-1, m_p - width + 1, 2**31 - 1, -2**31)
+        st = torch.from_numpy(st.astype(np.int32)).to(device)
+        flat = torch.from_numpy(
+            gen.random(int(np.prod(shape)) + 1, dtype=np.float32)).to(device)
+        for xk, label in ((flat[:-1].view(shape), 'aligned'),
+                          (flat[1:].view(shape), 'off by one float')):
+            _, exact = check_exact(
+                f'row_shift {m_p} -> {width} {kind} {label}',
+                lambda: K.row_shift(xk, st, width),
+                lambda: K.row_shift_plain(xk, st, width), tol=0.0)
+            check(exact, f'row_shift {m_p} -> {width} {kind} {label}: not '
+                  'bit-exact')
+    del flat, st
 
     # K3 at its first launch in a synth-640 batch.
     (xb, base, pos, taps), kwargs = captured['banded_line_resample']
@@ -625,6 +701,41 @@ def check_synth(result, n, side, crop_size):
     check(sum(len(w) for w in result.word_polygons) > 0, 'no text on pages')
 
 
+def check_regions(regions, side: int = 640, crop_size: int = 320):
+    """The text-region stream's output at RegionStreamConfig's default
+    canvas (640) and crop size (320), kept on the device: stacked pages
+    padded to a power-of-two count, labels, region crops."""
+    import torch
+
+    check(regions is not None, 'no text regions')
+    m = regions.num_pages
+    check(m >= 1, 'no stacked region page')
+    m_pad = regions.images.shape[0]
+    check(m_pad >= m and m_pad & (m_pad - 1) == 0 and m_pad < 2 * m + 1,
+          f'{m_pad} stacked pages for num_pages {m}')
+    check(isinstance(regions.images, torch.Tensor)
+          and regions.images.dtype == torch.uint8
+          and tuple(regions.images.shape) == (m_pad, side, side, 3),
+          f'region pages {tuple(regions.images.shape)}')
+    check(tuple(regions.active_masks.shape) == (m_pad, side, side)
+          and int(regions.active_masks[:m].sum()) > 0,
+          'region active masks')
+    maps = regions.gaussian_maps
+    check(tuple(maps.shape) == (m_pad, side, side)
+          and bool(torch.isfinite(maps).all()) and float(maps.max()) > 0.3
+          and float(maps.min()) >= 0.0, 'region gaussian maps')
+    check(len(regions.region_boxes) == m and len(regions.regression) == m
+          and sum(len(b) for b in regions.region_boxes) > 0
+          and sum(len(p) for p in regions.char_polygons) > 0,
+          'region labels')
+    k = regions.num_crops
+    check(k > 0 and tuple(regions.crop_images.shape)
+          == (k, crop_size, crop_size, 3)
+          and tuple(regions.crop_gaussians.shape) == (k, crop_size, crop_size)
+          and tuple(regions.crop_active.shape) == (k, crop_size, crop_size)
+          and int(regions.crop_page_ids.max()) < m, 'region crops')
+
+
 def spread_plans(n: int, height: int, rng):
     """Split n two-page spreads (height x 1400) into deskewed height x 700
     pages: a small rotation about the half's center, then a crop of it."""
@@ -657,6 +768,41 @@ def _label_planes(gen, shape):
     return (gen.random(shape + (2,)) > 0.5).astype(np.float32)
 
 
+def stream_rate(device, planner, seed: int, num_batches: int, regions: bool,
+                side: int = 640, batch: int = 8):
+    """synthesize_stream as bench config 6 calls it (with ``regions``; the
+    earlier main path without): (pages/s with host prep, page crops,
+    stacked region pages, region crops)."""
+    from vkit_tpu_torch.synth import (
+        CropConfig,
+        RegionStreamConfig,
+        synthesize_stream,
+    )
+
+    rng = np.random.default_rng(seed)
+    crop_size = side * 4 // 5
+    region_config = (RegionStreamConfig(num_crops_per_page=2) if regions
+                     else None)
+    sync(device)
+    begin = time.perf_counter()
+    pages = crops = stacked = region_crops = 0
+    for result in synthesize_stream(
+            planner, batch, 5, rng, num_batches=num_batches,
+            crop_config=CropConfig(core_size=crop_size, num_per_page=2),
+            region_config=region_config, keep_on_device=True,
+            device=device):
+        check_synth(result, batch, side, crop_size)
+        pages += result.images.shape[0]
+        crops += result.num_crops
+        if regions:
+            check_regions(result.text_regions)
+            stacked += result.text_regions.num_pages
+            region_crops += result.text_regions.num_crops
+    sync(device)
+    return (pages / (time.perf_counter() - begin), crops, stacked,
+            region_crops)
+
+
 def main_path(device, planner, seed: int, side: int = 640, batch: int = 8,
               distort_batch: int = 32, spread_height: int = 640):
     """One run of the main path; returns its rates."""
@@ -668,24 +814,12 @@ def main_path(device, planner, seed: int, side: int = 640, batch: int = 8,
         batch_random_geometric_distort,
         batch_random_photometric_distort,
     )
-    from vkit_tpu_torch.synth import CropConfig, synthesize_stream
 
     rates = {}
-    rng = np.random.default_rng(seed)
-    crop_size = side * 4 // 5
-    crop = CropConfig(core_size=crop_size, num_per_page=2)
-    sync(device)
-    begin = time.perf_counter()
-    pages = crops = 0
-    for result in synthesize_stream(planner, batch, 5, rng, num_batches=3,
-                                    crop_config=crop, keep_on_device=True,
-                                    device=device):
-        check_synth(result, batch, side, crop_size)
-        pages += result.images.shape[0]
-        crops += result.num_crops
-    sync(device)
-    rates['synth_pages_per_s'] = pages / (time.perf_counter() - begin)
-    rates['synth_crops'] = crops
+    (rates['synth_pages_per_s'], rates['synth_crops'],
+     rates['region_pages'], rates['region_crops']) = stream_rate(
+        device, planner, seed, num_batches=2, regions=True, side=side,
+        batch=batch)
 
     # RandomDistortion, bench config 5's shape: photometric, then one warp
     # of image + labels onto the 704 x 704 canvas (timed on its own in
@@ -828,13 +962,19 @@ def random_distortion_rate(device, seed: int, side: int = 640,
 
 
 def stage_spans(device, planner, seed: int, side: int = 640,
-                batches: int = 3, batch: int = 8):
+                batches: int = 2, batch: int = 8):
     """Per-stage seconds of synthesize_page_batch (its own timer spans,
     each closed by a device synchronize) over 8-page 640 x 640 batches,
-    level 5, two 512 x 512 crops per page, after one batch untimed.
-    Returns {stage: mean seconds per batch}."""
+    level 5, two 512 x 512 crops per page, char gaussian maps and the
+    text-region stream on, after one batch untimed.  Returns {stage: mean
+    seconds per batch}, the text regions' sub-spans included (they are part
+    of ``region``), and the mean regions per batch."""
     from vkit_tpu_torch.host import StepTimer
-    from vkit_tpu_torch.synth import CropConfig, synthesize_page_batch
+    from vkit_tpu_torch.synth import (
+        CropConfig,
+        RegionStreamConfig,
+        synthesize_page_batch,
+    )
 
     rng = np.random.default_rng(seed)
     crop_size = side * 4 // 5
@@ -842,15 +982,30 @@ def stage_spans(device, planner, seed: int, side: int = 640,
     page_sets = [planner.prepare_batch(batch, rng)
                  for _ in range(batches + 1)]
     timer = StepTimer()
+    region_count = 0
     for idx, pages in enumerate(page_sets):
         result = synthesize_page_batch(
-            pages, 5, rng, crop_config=crop, keep_on_device=True,
-            device=device, timer=timer if idx else None,
+            pages, 5, rng, crop_config=crop, emit_char_gaussians=True,
+            region_config=RegionStreamConfig(num_crops_per_page=2),
+            keep_on_device=True, device=device,
+            timer=timer if idx else None,
         )
         check_synth(result, batch, side, crop_size)
-    check(timer.counts['photometric'] == batches,
-          'the photometric span did not run')
-    return {name: timer.totals[name] / batches for name in timer.totals}
+        check_regions(result.text_regions)
+        maps = result.char_gaussian_maps
+        check(tuple(maps.shape) == (batch, side, side)
+              and float(maps.max()) > 0.3, 'char gaussian maps')
+        if idx:
+            region_count += sum(len(b) for b in
+                                result.text_regions.region_boxes)
+    for name in ('photometric', 'char-gaussians', 'region',
+                 'region.collect-host', 'region.composite',
+                 'region.gaussians', 'region.regression-host'):
+        check(timer.counts[name] == batches, f'the {name} span did not run')
+    check(timer.counts['region.gather+flatten'] >= batches,
+          'the region.gather+flatten span did not run')
+    return ({name: timer.totals[name] / batches for name in timer.totals},
+            region_count / batches)
 
 
 def small_batch_agreement(device, planner):
@@ -878,6 +1033,54 @@ def small_batch_agreement(device, planner):
     check(np.array_equal(card.crop_windows, host.crop_windows),
           'crop windows differ between card and CPU')
     return img_err, lab_err
+
+
+def region_agreement(device, planner):
+    """The same 320x320 batch with the text-region stream on, on the card
+    and on the CPU: the host fields equal; stacked pages within 1 LSB,
+    coverage equal and gaussian maps within 1e-4 but for a share of
+    REGION_EDGE_SHARE of the pixels (outline pixels where a float32
+    threshold flips).  Returns the shares that differed."""
+    from vkit_tpu_torch.synth import RegionStreamConfig, synthesize_page_batch
+
+    pages = planner.prepare_batch(2, np.random.default_rng(25))
+    config = RegionStreamConfig(page_size=320, target_char_height=24,
+                                num_crops_per_page=1, crop_size=160)
+    card, host = (
+        synthesize_page_batch(pages, 5, np.random.default_rng(26),
+                              enable_photometric=False, region_config=config,
+                              device=dev).text_regions
+        for dev in (device, 'cpu'))
+    check(card is not None and host is not None, 'no text regions at 320')
+    check(card.num_pages == host.num_pages >= 1
+          and card.num_crops == host.num_crops, 'region page / crop counts')
+
+    def boxes(per_page):
+        return [[(b.up, b.down, b.left, b.right) for b in page]
+                for page in per_page]
+
+    check(boxes(card.region_boxes) == boxes(host.region_boxes),
+          'region boxes differ between card and CPU')
+    check(all(np.array_equal(a.to_np_array(), b.to_np_array())
+              for pa, pb in zip(card.char_polygons, host.char_polygons)
+              for a, b in zip(pa, pb)), 'region char polygons differ')
+    check(all(np.array_equal(getattr(a, f), getattr(b, f))
+              for a, b in zip(card.regression, host.regression)
+              for f in a._fields), 'region regression labels differ')
+    check(np.array_equal(card.crop_page_ids, host.crop_page_ids),
+          'region crop ids differ')
+    img = (np.abs(card.images.astype(int) - host.images.astype(int))
+           .max(axis=-1) > 1).mean()
+    act = (card.active_masks != host.active_masks).mean()
+    maps = (np.abs(card.gaussian_maps - host.gaussian_maps) > 1e-4).mean()
+    crop = (np.abs(card.crop_images.astype(int)
+                   - host.crop_images.astype(int)).max(axis=-1) > 1).mean()
+    for what, share in (('pages', img), ('coverage', act),
+                        ('gaussian maps', maps), ('crops', crop)):
+        check(share <= REGION_EDGE_SHARE,
+              f'card vs CPU region {what}: {share} of the pixels differ')
+    return {'pages': float(img), 'coverage': float(act),
+            'gaussian_maps': float(maps), 'crops': float(crop)}
 
 
 def deterministic_stage():
@@ -1155,12 +1358,14 @@ def main() -> int:
     assets = build_assets(font)
     planner = make_planner(assets, 640)
     captured, per_batch = capture_main_path_args(device, planner)
-    log(f'[3 capture] launches in one synth-640 batch (8 pages, level 5): '
-        f'row_shift_window_slab {per_batch["row_shift_window_slab"]}, '
-        f'banded_line_resample {per_batch["banded_line_resample"]}')
+    log(f'[3 capture] launches in one synth-640 batch (8 pages, level 5, '
+        f'text-region stream on): {per_batch}')
     kernels = kernel_phase(device, captured)
     del captured
-    for name, res in kernels.items():
+    # K1's second shape is a log line; the JSON line has one entry a kernel.
+    shapes = dict(kernels)
+    del kernels['row_shift_window_slab/flatten']
+    for name, res in shapes.items():
         log(f'[3 kernel] {name} at {res["shape"]}: max_abs_err '
             f'{res["max_abs_err"]} bit_exact {res["bit_exact"]} ms '
             f'{res["ms"]:.4f} plain_ms {res["plain_ms"]:.4f} library_ms '
@@ -1169,6 +1374,9 @@ def main() -> int:
             + f' | bound {res["bound_ms"]:.4f} ms by {res["bound_by"]} '
             f'({res["bytes"] / 1e6:.1f} MB, {res["operations"]:.3g} ops), '
             f'share {res["share"]:.3f} | {card}')
+
+    if '--kernels-only' in sys.argv[1:]:
+        return 0
 
     # 4. Main path.
     main_path(device, planner, seed=100)           # warm-up, not counted
@@ -1184,21 +1392,37 @@ def main() -> int:
           f'a kernel never launched: {launches}')
     small = make_planner(assets, 320)
     img_err, lab_err = small_batch_agreement(device, small)
+    region_err = region_agreement(device, small)
     photo_err = photometric_agreement(device, small)
     log(f'[4 main path] synthesize_stream {rates["synth_pages_per_s"]} '
-        f'pages/s (3 batches of 8, {rates["synth_crops"]} crops, '
-        f'photometric stage on), batch_random_geometric_distort '
+        f'pages/s (2 batches of 8, {rates["synth_crops"]} crops, '
+        f'photometric stage on, text-region stream on: '
+        f'{rates["region_pages"]} stacked pages, {rates["region_crops"]} '
+        f'region crops), batch_random_geometric_distort '
         f'{rates["distort_images_per_s"]} images/s, spread split '
         f'{rates["spread_pages_per_s"]} pages/s | launches {launches} '
-        f'| card vs CPU: {img_err} LSB, labels {lab_err}, deterministic '
+        f'| card vs CPU: {img_err} LSB, labels {lab_err}, text regions '
+        f'(share of pixels apart) {region_err}, deterministic '
         f'photometric stage {photo_err} LSB | {card}')
-    spans = stage_spans(device, planner, seed=200)
+    off_rate, off_crops, _, _ = stream_rate(device, planner, 110,
+                                            num_batches=2, regions=False)
+    log(f'[4 region off] synthesize_stream {off_rate} pages/s (2 batches of '
+        f'8, {off_crops} crops, photometric stage on, text-region stream '
+        f'off: the main path of earlier revisions) | {card}')
+    spans, regions_per_batch = stage_spans(device, planner, seed=200)
+    # The region.* spans lie inside ``region``.
+    total = sum(sec for name, sec in spans.items()
+                if not name.startswith('region.'))
     log('[4 stages] synthesize_page_batch s per 8-page batch (timer spans, '
-        'mean of 3): ' + ', '.join(f'{name} {sec}'
-                                   for name, sec in spans.items())
-        + f' | sum {sum(spans.values())} | {card}')
+        'mean of 2, char gaussian maps and text-region stream on, '
+        f'{regions_per_batch} regions per batch): '
+        + ', '.join(f'{name} {sec}' for name, sec in spans.items())
+        + f' | sum without the region.* sub-spans {total} | {card}')
+    log(f'[4 region] {spans["region"]} s per 8-page batch, '
+        f'{spans["region"] / total} of the spans\' sum; char-gaussians '
+        f'{spans["char-gaussians"]} s | {card}')
     log(f'[4 photometric] {spans["photometric"]} s per 8-page batch '
-        f'(synth-640, level 5), {spans["photometric"] / sum(spans.values())}'
+        f'(synth-640, level 5), {spans["photometric"] / total}'
         f' of the spans\' sum | {card}')
     random_rate, step_times = random_distortion_rate(device, seed=300)
     log(f'[4 RandomDistortion] {random_rate} images/s over 6 timed steps of '

@@ -50,7 +50,7 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / 'vkit_tpu_torch'
-FORBIDDEN = ('vkit_tpu', 'jax', 'flax', 'optax')
+FORBIDDEN = ('vkit_tpu', 'jax', 'flax', 'optax', 'sklearn')
 
 
 # ---------------------------------------------------------------------------
@@ -215,7 +215,8 @@ for info in pkgutil.walk_packages(vkit_tpu_torch.__path__, 'vkit_tpu_torch.'):
     importlib.import_module(info.name)
 loaded = sorted(
     name for name in sys.modules
-    if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'vkit_tpu')
+    if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'sklearn',
+                              'vkit_tpu')
 )
 print(json.dumps({'loaded': loaded,
                   'jax_platforms': os.environ.get('JAX_PLATFORMS'),

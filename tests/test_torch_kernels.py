@@ -84,6 +84,43 @@ def _row_shift_case(seed, b=2, l=20, m=1536, ow=400):
     return x, starts, ow
 
 
+# K2 cases: (name, Mpad, out_w, kind of starts).  Odd and even widths that
+# are no multiple of 4, the widest output, the narrowest padded row with
+# start 0, and starts outside the caller's contract, which clamp each index
+# into the row.
+ROW_SHIFT_CASES = [
+    ('odd_width', 1536, 401, 'contract'),
+    ('even_not_quad', 1792, 702, 'contract'),
+    ('widest', 1536, 896, 'contract'),
+    ('narrow_pad_start0', 1024, 640, 'zero'),
+    ('tiny_width', 1100, 3, 'contract'),
+    ('clamped', 1280, 702, 'outside'),
+]
+
+
+def _row_shift_kind_case(m, ow, kind, seed=0, b=3, l=37):
+    rng = np.random.default_rng(seed)
+    x = rng.random((b, l, m), dtype=np.float32)
+    if kind == 'zero':
+        starts = np.zeros((b, l), np.int32)
+    elif kind == 'contract':
+        starts = rng.integers(0, m - K.ROLL_WINDOW + 1, (b, l)).astype(
+            np.int32)
+        starts[0, 0], starts[-1, -1] = 0, m - K.ROLL_WINDOW
+    else:
+        starts = rng.integers(-2 * m, 2 * m, (b, l)).astype(np.int32)
+        starts[0, :4] = (-1, m - ow + 1, np.iinfo(np.int32).max,
+                         np.iinfo(np.int32).min)
+        starts[1, :2] = (0, m - ow)        # the last starts that do not clamp
+    return x, starts, ow
+
+
+def _row_shift_numpy(x, starts, ow):
+    idx = np.clip(starts.astype(np.int64)[..., None] + np.arange(ow), 0,
+                  x.shape[-1] - 1)
+    return np.take_along_axis(x, idx, axis=2)
+
+
 def _banded_case(seed, taps, n=2, l=12, c=3, w=300, jp=256):
     rng = np.random.default_rng(seed)
     x = (rng.random((n, l, c, w), dtype=np.float32) * 255).astype(np.float32)
@@ -154,6 +191,22 @@ def test_row_shift_bit_exact(seed):
     got = K.row_shift(torch.from_numpy(x), torch.from_numpy(starts),
                       ow).numpy()
     assert np.array_equal(ref, got)
+
+
+@pytest.mark.parametrize('name,m,ow,kind', ROW_SHIFT_CASES)
+def test_row_shift_cases_bit_exact(name, m, ow, kind):
+    """Inside the contract the plain version equals the Pallas kernel in
+    interpret mode; outside it (where the TPU kernel is undefined) it clamps
+    each index into the row."""
+    x, starts, ow = _row_shift_kind_case(m, ow, kind)
+    got = K.row_shift(torch.from_numpy(x), torch.from_numpy(starts),
+                      ow).numpy()
+    assert np.array_equal(_row_shift_numpy(x, starts, ow), got)
+    if kind != 'outside':
+        ref = np.asarray(PK.row_shift_auto(
+            jnp.asarray(x), jnp.asarray(starts), ow
+        ))
+        assert np.array_equal(ref, got)
 
 
 @pytest.mark.parametrize('taps', [32, 64, 128])
@@ -256,6 +309,23 @@ def test_cuda_row_shift_window_slab_cases(cuda_device, kind, c, w, ow):
     x1, s1 = xt[:, :, 0].contiguous(), st
     assert torch.equal(K.row_shift_window(x1, s1, ow, 255.0),
                        K.row_shift_window_plain(x1, s1, ow, 255.0))
+
+
+@pytest.mark.parametrize('name,m,ow,kind', ROW_SHIFT_CASES)
+def test_cuda_row_shift_cases(cuda_device, name, m, ow, kind):
+    x, starts, ow = _row_shift_kind_case(m, ow, kind, seed=9, b=3, l=131)
+    xt = torch.from_numpy(x).to(cuda_device)
+    st = torch.from_numpy(starts).to(cuda_device)
+    before = K.LAUNCHES['row_shift']
+    got = K.row_shift(xt, st, ow)
+    assert K.LAUNCHES['row_shift'] == before + 1
+    ref = K.row_shift_plain(xt, st, ow)
+    assert torch.equal(got, ref)
+    # Padded rows that start one float off a 16-byte boundary.
+    xo = torch.empty(x.size + 1, dtype=torch.float32, device=cuda_device)
+    xo = xo[1:].view(x.shape)
+    xo.copy_(xt)
+    assert torch.equal(K.row_shift(xo, st, ow), ref)
 
 
 def test_cuda_kernels_match_plain(cuda_device):

@@ -21,6 +21,7 @@ from vkit_tpu.synth import synthesize_page_batch as jax_synthesize
 from vkit_tpu_torch.mechanism.batched import RNG_CONSUMING
 from vkit_tpu_torch.synth import (
     CropConfig,
+    RegionStreamConfig,
     synthesize_page_batch,
     synthesize_stream,
 )
@@ -203,30 +204,30 @@ def test_stage_timer_spans_leave_result_unchanged(planners):
     from vkit_tpu_torch.utility.profiling import StepTimer
 
     pages = planners['full'][1].prepare_batch(2, np.random.default_rng(14))
+    options = dict(
+        out_shape=OUT, crop_config=CROP, emit_char_gaussians=True,
+        region_config=RegionStreamConfig(page_size=256,
+                                         target_char_height=24),
+        device='cpu',
+    )
     plain = synthesize_page_batch(pages, 5, np.random.default_rng(15),
-                                  out_shape=OUT, crop_config=CROP,
-                                  device='cpu')
+                                  **options)
     timer = StepTimer()
     timed = synthesize_page_batch(pages, 5, np.random.default_rng(15),
-                                  out_shape=OUT, crop_config=CROP,
-                                  device='cpu', timer=timer)
+                                  timer=timer, **options)
     assert set(timer.counts) == {
         'assemble', 'photometric', 'plan-host', 'warp', 'active-host',
-        'finish', 'polygons-host', 'crops', 'fetch',
+        'finish', 'polygons-host', 'char-gaussians', 'crops', 'region',
+        'region.collect-host', 'region.gather+flatten', 'region.composite',
+        'region.gaussians', 'region.regression-host', 'fetch',
     }
+    # One flatten span per (source tile, chunk); every other span once.
+    assert timer.counts.pop('region.gather+flatten') >= 1
     assert all(count == 1 for count in timer.counts.values())
     np.testing.assert_array_equal(timed.images, plain.images)
     np.testing.assert_array_equal(timed.label_stack, plain.label_stack)
     np.testing.assert_array_equal(timed.crop_windows, plain.crop_windows)
-
-
-@pytest.mark.parametrize('option', ['gaussians', 'region'])
-def test_unported_options_raise(planners, option):
-    pages = planners['text'][1].prepare_batch(1, np.random.default_rng(0))
-    kwargs = {
-        'gaussians': {'emit_char_gaussians': True},
-        'region': {'region_config': object()},
-    }[option]
-    with pytest.raises(NotImplementedError):
-        synthesize_page_batch(pages, 5, np.random.default_rng(0),
-                              device='cpu', **kwargs)
+    np.testing.assert_array_equal(timed.char_gaussian_maps,
+                                  plain.char_gaussian_maps)
+    np.testing.assert_array_equal(timed.text_regions.images,
+                                  plain.text_regions.images)

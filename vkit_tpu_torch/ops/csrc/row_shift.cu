@@ -39,13 +39,55 @@
 // which is the two's complement mod 2048 for every int32 start, so the
 // result equals the plain PyTorch version bit for bit, wrapping starts
 // included.
+//
+// K2.  out[r, j] = x[r, clamp(starts[r] + j, 0, m_padded - 1)]: the caller
+// pads the rows (the TPU kernel rolls a 1024-lane window of the padded row;
+// its contract is 0 <= starts and starts + 1024 <= m_padded), so a row is
+// one contiguous span of out_w floats in and one out, each at any float
+// phase.  Bytes bound it: at the spread-split call (chip_smoke.py phase
+// 3), x (8, 4480, 1792) -> out_w 702, 35,840 rows: 100.6 MB read + 100.6
+// MB written, a bound of 0.060 ms at 3.35 TB/s.
+//
+// Design, for Hopper:
+//   - one warp owns a row; row and lane come from the block and thread
+//     index (no division), and starts[r] is one broadcast load per row;
+//   - 16-byte traffic on both sides.  The output row splits into a head
+//     (0-3 floats up to the first 16-byte boundary), full aligned quads
+//     and a tail (0-3 floats).  Output quad t needs the source floats
+//     [4t + d, 4t + d + 4) of the 16-byte-aligned source span, d in 0..3
+//     the phase between the two sides.  Every lane loads whole aligned
+//     source quads (ld.global.nc.v4, all of a row's loads issued before
+//     the first store: up to 8 per lane, 2.8 KB in flight per warp at
+//     out_w 702), takes the d floats it lacks from the next lane's quad
+//     with warp shuffles (lane 31 from lane 0's next quad), and writes
+//     one float4.  Each source byte is requested once; nothing goes
+//     through shared memory;
+//   - no staging or TMA: a row is 2.8 KB, so a bulk copy per row would pay
+//     an mbarrier round trip for every 2.8 KB, and the realign would then
+//     read shared memory at a 4-float lane stride (a 4-way bank conflict,
+//     which K1's scalar reads have); registers and shuffles need neither.
+//     Tried on the card: the same kernel with each lane loading both
+//     quads itself instead of shuffling read 0.0798 ms where this one read
+//     0.0757 and 0.0761 ms in the same call, and the kernel before it (a
+//     thread per output float, scalar accesses, a 64-bit division each)
+//     0.1365 ms (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase 3,
+//     PERF.md);
+//   - blocks are 4 warps = 4 rows and not persistent: 8,960 short blocks at
+//     the spread-split call, scheduled as SMs free up, so the ragged last
+//     wave is one 4-row block long at most;
+//   - a start outside the contract (negative, or the row would end past
+//     m_padded) takes a scalar path that clamps each index in 64 bits, as
+//     the plain version does; quads that would reach outside the tensor
+//     (its first and last 12 bytes when it is not 16-byte aligned) are
+//     read float by float.
+// Copies only, so the result equals the plain PyTorch version bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kWindow = 2048;
-constexpr int kThreads = 256;       // K2
+constexpr int kShiftWarps = 4;      // K2: rows (warps) per block
 constexpr int kSlabThreads = 128;   // K1 / K4
 // Shared memory of one stage; two stages and the header stay under the
 // 48 KB a block gets without opting in.
@@ -231,24 +273,109 @@ row_shift_window_slab_kernel(Slab s) {
   }
 }
 
-// out[r, j] = x[r, clamp(starts[r] + j, 0, m_padded - 1)].  The caller
-// pads the rows (the TPU kernel's contract: 0 <= starts and
-// starts + 1024 <= m_padded); the clamp only keeps a start outside that
-// contract from reading another row.
-__global__ void row_shift_kernel(
-    const float* __restrict__ x, const int32_t* __restrict__ starts,
-    float* __restrict__ out, int64_t total, int m_padded, int out_width) {
-  int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  int j = (int)(i % out_width);
-  int64_t row = i / out_width;
-  int k = starts[row] + j;
-  k = k < 0 ? 0 : (k >= m_padded ? m_padded - 1 : k);
-  out[i] = x[row * (int64_t)m_padded + k];
+// K2.  An aligned source quad; floats outside the tensor [lo, hi) read 0
+// (they are never selected).
+__device__ __forceinline__ float4 load_quad(const float* p, const float* lo,
+                                            const float* hi) {
+  if (p >= lo && p + 4 <= hi) return __ldg(reinterpret_cast<const float4*>(p));
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (p >= lo && p < hi) v.x = __ldg(p);
+  if (p + 1 >= lo && p + 1 < hi) v.y = __ldg(p + 1);
+  if (p + 2 >= lo && p + 2 < hi) v.z = __ldg(p + 2);
+  if (p + 3 >= lo && p + 3 < hi) v.w = __ldg(p + 3);
+  return v;
 }
 
-unsigned int blocks_for(int64_t total) {
-  return (unsigned int)((total + kThreads - 1) / kThreads);
+// The value the next quad of the row holds: the next lane's `cur`, or for
+// lane 31 lane 0's `next` (the warp's following group of 32 quads).
+__device__ __forceinline__ float from_next_quad(float cur, float next,
+                                                int lane) {
+  const float down = __shfl_down_sync(0xffffffffu, cur, 1);
+  const float wrap = __shfl_sync(0xffffffffu, next, 0);
+  return lane == 31 ? wrap : down;
+}
+
+// out[r, j] = x[r, clamp(starts[r] + j, 0, m_padded - 1)], one warp per
+// row; kGroups * 32 aligned quads cover a row's source span.
+template <int kGroups>
+__global__ void __launch_bounds__(kShiftWarps * 32)
+row_shift_kernel(const float* __restrict__ x,
+                 const int32_t* __restrict__ starts, float* __restrict__ out,
+                 int rows, int m_padded, int out_width) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kShiftWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int start = __ldg(starts + row);
+  const float* xrow = x + (int64_t)row * m_padded;
+  float* orow = out + (int64_t)row * out_width;
+
+  if (start < 0 || start > m_padded - out_width) {
+    // Outside the caller's contract: clamp every index into the row.
+    for (int j = lane; j < out_width; j += 32) {
+      int64_t k = (int64_t)start + j;
+      k = k < 0 ? 0 : (k >= m_padded ? m_padded - 1 : k);
+      orow[j] = __ldg(xrow + k);
+    }
+    return;
+  }
+
+  const float* src = xrow + start;
+  const int dst_phase = (int)(((uintptr_t)orow >> 2) & 3u);
+  const int head = min((4 - dst_phase) & 3, out_width);
+  const int quads = (out_width - head) >> 2;
+  const int tail = out_width - head - (quads << 2);
+  // Phase of the source float that lands in the first aligned output slot.
+  const int d = (int)(((uintptr_t)(src + head) >> 2) & 3u);
+  const float* span = src + head - d;         // 16-byte aligned
+  const int last = quads - 1 + (d > 0 ? 1 : 0);
+  const float* lo = x;
+  const float* hi = x + (int64_t)rows * m_padded;
+
+  float4 a[kGroups + 1];
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g) {
+    const int t = g * 32 + lane;
+    a[g] = t <= last ? load_quad(span + 4 * t, lo, hi)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  a[kGroups] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  if (lane < head) orow[lane] = __ldg(src + lane);
+  if (lane < tail) {
+    const int j = head + (quads << 2) + lane;
+    orow[j] = __ldg(src + j);
+  }
+
+  float4* oq = reinterpret_cast<float4*>(orow + head);
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g) {
+    const int t = g * 32 + lane;
+    const float4 c = a[g];
+    const float4 n = a[g + 1];
+    float4 v = c;
+    // d is the same for the whole warp, so every lane takes one branch.
+    if (d == 1) {
+      v = make_float4(c.y, c.z, c.w, from_next_quad(c.x, n.x, lane));
+    } else if (d == 2) {
+      v = make_float4(c.z, c.w, from_next_quad(c.x, n.x, lane),
+                      from_next_quad(c.y, n.y, lane));
+    } else if (d == 3) {
+      v = make_float4(c.w, from_next_quad(c.x, n.x, lane),
+                      from_next_quad(c.y, n.y, lane),
+                      from_next_quad(c.z, n.z, lane));
+    }
+    if (t < quads) oq[t] = v;
+  }
+}
+
+template <int kGroups>
+int launch_shift(const float* x, const int32_t* starts, float* out, int rows,
+                 int m_padded, int out_width, cudaStream_t stream) {
+  const unsigned int blocks =
+      (unsigned int)((rows + kShiftWarps - 1) / kShiftWarps);
+  row_shift_kernel<kGroups><<<blocks, kShiftWarps * 32, 0, stream>>>(
+      x, starts, out, rows, m_padded, out_width);
+  return (int)cudaGetLastError();
 }
 
 template <bool kVec>
@@ -313,8 +440,20 @@ extern "C" int vk_row_shift_window(
 extern "C" int vk_row_shift(
     const float* x, const int32_t* starts, float* out, int64_t rows,
     int m_padded, int out_width, void* stream) {
-  int64_t total = rows * (int64_t)out_width;
-  row_shift_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
-      x, starts, out, total, m_padded, out_width);
-  return (int)cudaGetLastError();
+  if (rows > 0x7fffffff || out_width < 1 || out_width > m_padded)
+    return (int)cudaErrorInvalidValue;
+  const int r = (int)rows;
+  cudaStream_t s = (cudaStream_t)stream;
+  // Source quads of a row: out_width / 4 and one more for the phase.
+  switch ((out_width / 4 + 1 + 31) / 32) {
+    case 1: return launch_shift<1>(x, starts, out, r, m_padded, out_width, s);
+    case 2: return launch_shift<2>(x, starts, out, r, m_padded, out_width, s);
+    case 3: return launch_shift<3>(x, starts, out, r, m_padded, out_width, s);
+    case 4: return launch_shift<4>(x, starts, out, r, m_padded, out_width, s);
+    case 5: return launch_shift<5>(x, starts, out, r, m_padded, out_width, s);
+    case 6: return launch_shift<6>(x, starts, out, r, m_padded, out_width, s);
+    case 7: return launch_shift<7>(x, starts, out, r, m_padded, out_width, s);
+    case 8: return launch_shift<8>(x, starts, out, r, m_padded, out_width, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

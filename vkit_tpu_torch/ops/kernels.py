@@ -8,8 +8,14 @@ vkit_tpu/ops/pallas_kernels.py:
   banded_line_resample   (csrc/banded_resample.cu)  <- banded_line_resample
   row_shift_window       (csrc/row_shift.cu)        <- row_shift_window
 
-The page-synthesis path runs the first three; ``row_shift_window`` (K1 with
-one channel) has no caller on a path, in the JAX package or here.
+Which path launches which: the two-shear affine warp (ops/warp_mxu.py)
+launches ``row_shift_window_slab`` once per pass, or ``row_shift`` where a
+pass's span fails the 2048-lane window (a 1400-lane spread cut to 700); it
+serves the page warp of synth/device.py and RandomDistortion, and the
+text-region stream's flatten (ops/region.py, twice per flatten chunk).  The
+banded two-pass warp (ops/warp_banded.py) launches ``banded_line_resample``
+once per pass for smooth fields.  ``row_shift_window`` (K1 with one channel)
+has no caller on a path, in the JAX package or here.
 
 The sources build at first use with ``nvcc`` into one shared library with a
 plain C interface under ``ops/build/`` (named by a hash of the sources and

@@ -6,6 +6,14 @@ from .device import (
     synthesize_stream,
 )
 from .prep import HostPage, SynthPlanner, SynthPlannerConfig
+from .region import (
+    CharRegression,
+    RegionBatchResult,
+    RegionStreamConfig,
+    stack_text_regions,
+)
 
-__all__ = ['CropConfig', 'HostPage', 'SynthBatchResult', 'SynthPlanner',
-           'SynthPlannerConfig', 'synthesize_page_batch', 'synthesize_stream']
+__all__ = ['CharRegression', 'CropConfig', 'HostPage', 'RegionBatchResult',
+           'RegionStreamConfig', 'SynthBatchResult', 'SynthPlanner',
+           'SynthPlannerConfig', 'stack_text_regions',
+           'synthesize_page_batch', 'synthesize_stream']

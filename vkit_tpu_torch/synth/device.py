@@ -1,9 +1,11 @@
 """The batched page-synthesis program on the device: assemble ->
-photometric stage -> geometric warp -> finish -> crops.
+photometric stage -> geometric warp -> finish -> char gaussians -> crops ->
+text-region stream.
 
 Port of vkit_tpu/synth/device.py: ``_composite_overlays``,
-``_extract_crops_program``, ``_finish_program_const``, ``_finish_program``,
-``synthesize_page_batch`` and ``synthesize_stream``.  Host work (page prep,
+``_char_gaussian_maps``, ``_extract_crops_program``,
+``_finish_program_const``, ``_finish_program``, ``synthesize_page_batch``
+and ``synthesize_stream``.  Host work (page prep,
 plan sampling, active masks, polygon co-transform, crop-window sampling)
 is the reference's own code (``_sample_crop_windows``,
 ``_split_oversized_overlay``, ``_affine_stretches``, the result types),
@@ -11,9 +13,16 @@ called in the same order with the same rng, so plans and crop windows match
 the JAX run draw for draw.
 
 The photometric stage is on by default, as in the reference: its policy
-draws come from the same ``rng`` before the geometric plans do.  Not ported
-yet (raise NotImplementedError): char gaussian maps (ROADMAP.md slice 4) and
-the text-region stream (slice 5).
+draws come from the same ``rng`` before the geometric plans do.  Both
+options of the reference are here: ``emit_char_gaussians`` (per-char
+gaussian maps from the post-warp char quads) and ``region_config`` (the
+adaptive-scaling text-region stream of synth/region.py, which draws its
+crop anchors from ``rng`` after the page crop windows, as the reference
+does).  Which kernel runs where: the page warp launches
+``row_shift_window_slab`` (affine plans), ``row_shift`` (affine plans whose
+span fails the 2048-lane window) or ``banded_line_resample`` (smooth
+fields); the region flatten launches ``row_shift_window_slab`` twice per
+flatten chunk.
 """
 import contextlib
 import queue
@@ -38,7 +47,14 @@ from ..mechanism.distortion.warp_plan import (
     rescale_plan_to,
     warp_active_mask,
 )
-from ..ops.glyph import build_placements, composite_glyphs, composite_patches
+from ..ops.glyph import (
+    GlyphPlacements,
+    accumulate_glyph_alpha,
+    build_placements,
+    composite_glyphs,
+    composite_patches,
+)
+from ..ops.region import batch_char_heatmaps
 from .prep import CHAR_HEIGHT, TEXT_LINE_HEIGHT, HostPage
 
 __all__ = ['CropConfig', 'SynthBatchResult', 'synthesize_page_batch',
@@ -106,6 +122,60 @@ class SynthBatchResult(NamedTuple):
     # region pages + char regression labels + region crops; None unless
     # a RegionStreamConfig was passed.
     text_regions: Optional[object] = None  # RegionBatchResult
+
+
+def _char_gaussian_maps(char_polygons, out_shape, tile: int = 64,
+                        device='cuda'):
+    """Analytic gaussian bumps through each post-warp char quad
+    (ops/region.batch_char_heatmaps) max-accumulated onto the page canvas
+    (ops/glyph.accumulate_glyph_alpha): an (N, out_h, out_w) float32 tensor
+    on ``device``.  The reference warps a sampled bump per char on host
+    (char_heatmap/default.py); overlap neutralization stays with the host
+    engine.  Chars whose box is under 2 px or over ``tile`` are left out,
+    as in the reference; the row tables are built per page, not per char."""
+    device = convert.resolve_device(device)
+    n = len(char_polygons)
+    quads, sample_ids, ups, lefts, hs, ws = [], [], [], [], [], []
+    for sid, polys in enumerate(char_polygons):
+        if not polys:
+            continue
+        xy = np.stack([p.np_xy for p in polys]).astype(np.float64)
+        up = np.floor(xy[..., 1].min(axis=1))
+        left = np.floor(xy[..., 0].min(axis=1))
+        h = xy[..., 1].max(axis=1) - up + 1
+        w = xy[..., 0].max(axis=1) - left + 1
+        keep = ~((h < 2) | (w < 2) | (h > tile) | (w > tile))
+        quads.append((xy - np.stack([left, up], axis=1)[:, None, :])[keep])
+        sample_ids.append(np.full(int(keep.sum()), sid))
+        ups.append(up[keep])
+        lefts.append(left[keep])
+        hs.append(np.ceil(h[keep]))
+        ws.append(np.ceil(w[keep]))
+    canvas = torch.zeros((n,) + tuple(out_shape), dtype=torch.float32,
+                         device=device)
+    count = sum(len(q) for q in quads)
+    if not count:
+        return canvas
+    tiles = batch_char_heatmaps(np.concatenate(quads), tile=tile,
+                                device=device)
+
+    def ints(parts):
+        return np.concatenate(parts).astype(np.int32)
+
+    dst_hs, dst_ws = ints(hs), ints(ws)
+    placements = GlyphPlacements(
+        glyph_ids=np.arange(count, dtype=np.int32),
+        sample_ids=ints(sample_ids),
+        ups=ints(ups),
+        lefts=ints(lefts),
+        dst_hs=dst_hs,
+        dst_ws=dst_ws,
+        src_hs=dst_hs.astype(np.float32),
+        src_ws=dst_ws.astype(np.float32),
+        colors=np.zeros((count, 3), np.float32),
+        valids=np.ones(count, np.float32),
+    )
+    return accumulate_glyph_alpha(canvas, tiles, placements, out_tile=tile)
 
 
 class CropConfig(NamedTuple):
@@ -361,17 +431,6 @@ def _spans(timer, device):
     return measure
 
 
-def _check_ported(emit_char_gaussians, region_config):
-    if emit_char_gaussians:
-        raise NotImplementedError(
-            'char gaussian maps are not ported yet (ROADMAP.md slice 4)'
-        )
-    if region_config is not None:
-        raise NotImplementedError(
-            'the text-region stream is not ported yet (ROADMAP.md slice 5)'
-        )
-
-
 def synthesize_page_batch(
     pages: Sequence[HostPage],
     level: int,
@@ -394,13 +453,14 @@ def synthesize_page_batch(
     ``keep_on_device`` the raster outputs stay tensors on ``device``;
     otherwise they are fetched to numpy.  Crop tensors hold exactly
     ``num_crops`` rows (the reference pads them to a power of two for its
-    compiled shapes).
+    compiled shapes).  ``emit_char_gaussians`` adds per-char gaussian maps;
+    a ``region_config`` (synth.region.RegionStreamConfig) adds the stacked
+    text-region pages as ``text_regions``.
 
     ``timer``: an object with a ``measure(name)`` context manager, such as
     vkit_tpu's ``StepTimer``.  With one, each stage is a span that ends with
     a device synchronize, so it holds the stage's device time; the spans
     serialize host and device work, so leave it None outside profiling."""
-    _check_ported(emit_char_gaussians, region_config)
     device = convert.resolve_device(device)
     n = len(pages)
     if n == 0:
@@ -491,6 +551,12 @@ def synthesize_page_batch(
         word_polygons, char_polygons, char_quads, content_boxes = \
             _co_transform(plans, pages)
 
+    gaussians = None
+    if emit_char_gaussians:
+        with measure('char-gaussians'):
+            gaussians = _char_gaussian_maps(char_polygons, out_shape,
+                                            device=device)
+
     # 5. Crops: windows from analytic info, cut on the device.
     crop_images = crop_labels = crop_active = crop_page_ids = None
     crop_windows = None
@@ -510,18 +576,7 @@ def synthesize_page_batch(
                 crop_page_ids = sids
                 crop_windows = np.stack([c_ups, c_lefts], axis=1)
 
-    if not keep_on_device:
-        with measure('fetch'):
-            images, label_stack, active_u8 = (
-                t.cpu().numpy() for t in (images, label_stack, active_u8)
-            )
-            if crop_images is not None:
-                crop_images, crop_labels, crop_active = (
-                    t.cpu().numpy()
-                    for t in (crop_images, crop_labels, crop_active)
-                )
-
-    return SynthBatchResult(
+    result = SynthBatchResult(
         images=images,
         label_stack=label_stack,
         active_masks=active_u8,
@@ -533,9 +588,31 @@ def synthesize_page_batch(
         crop_active=crop_active,
         crop_page_ids=crop_page_ids,
         crop_windows=crop_windows,
+        char_gaussian_maps=gaussians,
         num_crops=num_crops,
         char_quads=char_quads,
     )
+
+    # 6. The text-region stream, on the pages while they are on the device.
+    if region_config is not None:
+        from .region import stack_text_regions
+
+        with measure('region'):
+            result = result._replace(text_regions=stack_text_regions(
+                result, region_config, rng, keep_on_device=keep_on_device,
+                timer=timer, device=device,
+            ))
+
+    if not keep_on_device:
+        with measure('fetch'):
+            result = result._replace(**{
+                name: getattr(result, name).cpu().numpy()
+                for name in ('images', 'label_stack', 'active_masks',
+                             'crop_images', 'crop_labels', 'crop_active',
+                             'char_gaussian_maps')
+                if getattr(result, name) is not None
+            })
+    return result
 
 
 def synthesize_stream(
@@ -556,7 +633,6 @@ def synthesize_stream(
     device work: a background thread keeps up to ``prefetch`` prepared
     page batches queued while the device program drains the previous one.
     Per-batch child seeds are drawn from ``rng`` up front, in order."""
-    _check_ported(emit_char_gaussians, region_config)
     device = convert.resolve_device(device)
     prep_queue: 'queue.Queue' = queue.Queue(maxsize=max(prefetch, 1))
     seeds = [int(rng.integers(0, 2**63 - 1)) for _ in range(num_batches)]
@@ -588,6 +664,8 @@ def synthesize_stream(
             yield synthesize_page_batch(
                 pages, level=level, rng=level_rngs[idx],
                 out_shape=out_shape, crop_config=crop_config,
+                emit_char_gaussians=emit_char_gaussians,
+                region_config=region_config,
                 keep_on_device=keep_on_device, device=device,
             )
     finally:
