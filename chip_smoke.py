@@ -26,7 +26,12 @@ Phases, one line each (plus detail lines):
      calls, runs at K1's captured rows' RGB planes, one plane per row; K2
      (row_shift), which only the spread split routes, at a 1400-lane
      source cut to 700 outputs, and for exactness at odd widths, the widest
-     output, starts that clamp and rows off 16-byte alignment;
+     output, starts that clamp and rows off 16-byte alignment.  Then the
+     row-shift launches of phase 6's other two paths, recorded in one call
+     each on the inputs phase 6 rebuilds from the same seeds (both passes
+     of the one-program chain at 64 x 640x640x3 and of the dense warp at 8 x
+     640x640x5), each bit for bit against its plain version, with its times
+     and bound on a line of its own;
   4. main path: full-content 640x640 pages through synthesize_stream as
      bench config 6 calls it (batch 8, level 5, two 512x512 crops per
      page, the photometric stage on as by default, the text-region stream
@@ -54,10 +59,28 @@ Phases, one line each (plus detail lines):
      samples passing through), and one round of the one-program catalog
      with a different op per sample.  Deterministic ops are held to the
      same call on the CPU; rng-consuming ops to their configs' moments.
+  6. training path: synthesize_stream as phase 4 calls it, char gaussian
+     maps on, feeding synth_to_train_batch and train steps of the default
+     TextDetectionNet (64-128-256-512, FPN 128, bfloat16) at 8 x 640x640:
+     one warm-up step and four more on fresh batches (pages/s over all five
+     batches from the stream's first request to the last step, since the
+     stream prepares batches ahead while a step runs; s per step), four on
+     a repeated batch (s per step alone; its loss must fall), peak device
+     memory; the narrow net's float32 forward
+     on the card against the CPU; a checkpoint saved from the card and
+     restored onto it.  Then the one-program chain (parallel.
+     synthesize_batch) at bench config 1's shape (64 x 640x640x3, level 5),
+     images/s of a plain loop, and with noise off against the CPU at 320
+     px; and batched_plan_warp(mode='dense') on 8 x 640x640x5 with mild
+     camera plans, against mode='gather' and against its own CPU run.
+     Each of the three runs with the launch counters zeroed just before
+     and read just after: K1 and K3 must have launched in training, K1 or
+     K2 in the chain and in the dense warp.
 Then one JSON line of per-kernel results, the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Any failure raises (exit code != 0).
-`launches` in the JSON line counts the phase-4 run only, so K4 reads 0;
-the launches of one synth-640 batch are on phase 3's capture line.
+`launches` in the JSON line sums the counted runs of phases 4 and 6
+(`launches_by_path` has each), so K4 reads 0; the launches of one synth-640
+batch are on phase 3's capture line.
 Parity with the CPU assumes TF32 off for matmuls and cuDNN, as set here.
 The script needs a CUDA card and the rest of the repository beside it.
 """
@@ -93,6 +116,8 @@ KERNEL_SOURCES = {
 # The kernels the main path runs; K4 has no caller on any path.
 MAIN_PATH_KERNELS = ('row_shift_window_slab', 'row_shift',
                      'banded_line_resample')
+# The kernels of the stream that feeds training (no spread split there).
+TRAINING_PATH_KERNELS = ('row_shift_window_slab', 'banded_line_resample')
 # The card's published peaks (H100 SXM data sheet): device memory bytes/s,
 # float32 operations/s outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
@@ -144,7 +169,7 @@ def probe_host_libraries():
 
 def import_the_port() -> int:
     """Imports every module of vkit_tpu_torch; fails if that loaded jax,
-    flax, optax, sklearn or any vkit_tpu module.  Returns the module
+    flax, optax, orbax, sklearn or any vkit_tpu module.  Returns the module
     count."""
     import vkit_tpu_torch
 
@@ -153,7 +178,7 @@ def import_the_port() -> int:
     for name in names:
         importlib.import_module(name)
     loaded = sorted(name for name in sys.modules if name.split('.')[0] in
-                    ('jax', 'jaxlib', 'flax', 'optax', 'sklearn',
+                    ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'sklearn',
                      'vkit_tpu'))
     check(not loaded, f'importing the port loaded {loaded[:8]}')
     return len(names)
@@ -353,6 +378,41 @@ def compare(name, kernel_fn, plain_fn, tol: float, work, library_fn=None):
     }
 
 
+def copy_call(args, kwargs):
+    """A wrapper call's arguments with every tensor cloned."""
+    import torch
+
+    return ([a.clone() if isinstance(a, torch.Tensor) else a for a in args],
+            dict(kwargs))
+
+
+def record_row_shifts(run):
+    """Calls ``run()`` with recorders around the K1 and K2 wrappers that
+    ops/warp_mxu.py calls (the affine and the dense two-pass reach them
+    there).  Returns [(kernel, args, kwargs)], one entry per launch in call
+    order, copied.  Untimed, and outside any counted run."""
+    from vkit_tpu_torch.ops import warp_mxu
+
+    names = ('row_shift_window_slab', 'row_shift')
+    originals = {name: getattr(warp_mxu, name) for name in names}
+    calls = []
+
+    def recorder(name):
+        def record(*args, **kwargs):
+            calls.append((name,) + copy_call(args, kwargs))
+            return originals[name](*args, **kwargs)
+        return record
+
+    for name in names:
+        setattr(warp_mxu, name, recorder(name))
+    try:
+        run()
+    finally:
+        for name in names:
+            setattr(warp_mxu, name, originals[name])
+    return calls
+
+
 def capture_main_path_args(device, planner, seed: int = 400, batch: int = 8,
                            side: int = 640):
     """Runs one synth-640 batch (level 5, two crops per page, photometric
@@ -362,8 +422,6 @@ def capture_main_path_args(device, planner, seed: int = 400, batch: int = 8,
     'row_shift_window_slab/flatten' K1's largest launch of another shape
     (the region flatten's), and the batch's launches per kernel.  Untimed,
     and outside the counted main-path run."""
-    import torch
-
     from vkit_tpu_torch.ops import kernels as K
     from vkit_tpu_torch.ops import warp_banded, warp_mxu
     from vkit_tpu_torch.synth import (
@@ -378,19 +436,15 @@ def capture_main_path_args(device, planner, seed: int = 400, batch: int = 8,
              (warp_banded, 'banded_line_resample'))
     originals = [getattr(module, name) for module, name in sites]
 
-    def copied(args, kwargs):
-        return ([a.clone() if isinstance(a, torch.Tensor) else a
-                 for a in args], dict(kwargs))
-
     def recorder(name, real):
         def record(*args, **kwargs):
             if name not in captured:
-                captured[name] = copied(args, kwargs)
+                captured[name] = copy_call(args, kwargs)
             elif (name == 'row_shift_window_slab'
                   and args[0].shape != captured[name][0][0].shape
                   and (flatten not in captured or args[0].numel()
                        > captured[flatten][0][0].numel())):
-                captured[flatten] = copied(args, kwargs)
+                captured[flatten] = copy_call(args, kwargs)
             return real(*args, **kwargs)
         return record
 
@@ -466,6 +520,57 @@ def window_work(x, starts, out_width: int):
     floats = (channels * window_read_floats(starts, x.shape[-1], out_width)
               + rows + rows * channels * out_width)
     return 4.0 * floats, 0.0
+
+
+def shift_work(x_padded, starts, out_width: int):
+    """(bytes, operations) of one K2 call: each row's span of ``out_width``
+    lanes at its start (indices clamp into the row), the starts and the
+    output, each once; no arithmetic on the data."""
+    import torch
+
+    m_padded = x_padded.shape[-1]
+    first = starts.to(torch.int64).clamp(0, m_padded - 1)
+    last = (starts.to(torch.int64) + out_width - 1).clamp(0, m_padded - 1)
+    floats = (int((last - first + 1).sum()) + starts.numel()
+              + starts.numel() * out_width)
+    return 4.0 * floats, 0.0
+
+
+def shift_gather_library(x_padded, starts, out_width: int):
+    """K2's library yardstick: one torch.gather at an index computed
+    beforehand."""
+    import torch
+
+    j = torch.arange(out_width, device=x_padded.device)
+    idx = (starts.to(torch.int64)[..., None] + j).clamp(
+        0, x_padded.shape[-1] - 1)
+    return lambda: torch.gather(x_padded, 2, idx)
+
+
+def compare_row_shift(label: str, name: str, args, kwargs):
+    """compare() of one recorded K1 or K2 launch, which must be bit-exact."""
+    from vkit_tpu_torch.ops import kernels as K
+
+    x, starts, width = args
+    if name == 'row_shift_window_slab':
+        border = float(kwargs.get('border_value', 0.0))
+        result = compare(
+            label,
+            lambda: K.row_shift_window_slab(x, starts, width, border),
+            lambda: K.row_shift_window_slab_plain(x, starts, width, border),
+            tol=0.0, work=window_work(x, starts, width),
+            library_fn=window_gather_library(x, starts, width, border))
+    else:
+        check(name == 'row_shift', f'{label}: recorded {name}')
+        result = compare(
+            label,
+            lambda: K.row_shift(x, starts, width),
+            lambda: K.row_shift_plain(x, starts, width),
+            tol=0.0, work=shift_work(x, starts, width),
+            library_fn=shift_gather_library(x, starts, width))
+    check(result['bit_exact'], f'{label}: not bit-exact')
+    result['shape'] = f'{tuple(x.shape)} -> {width}'
+    return result
 
 
 def banded_work(x, base, pos, taps: int):
@@ -599,23 +704,10 @@ def kernel_phase(device, captured):
     rows = plan_t.starts[:, :, None].expand(n, lines, c).reshape(
         n, lines * c).to(torch.int32).contiguous()
     del xs
-    m_shift, m_padded = statics.m_shift, statics.m_padded
-    j = torch.arange(m_shift, device=device)
-    first = rows.to(torch.int64).clamp(0, m_padded - 1)
-    last = (rows.to(torch.int64) + m_shift - 1).clamp(0, m_padded - 1)
-    k2_floats = (int((last - first + 1).sum()) + rows.numel()
-                 + rows.numel() * m_shift)
-    idx2 = (rows.to(torch.int64)[..., None] + j).clamp(0, m_padded - 1)
-    results['row_shift'] = compare(
-        'row_shift',
-        lambda: K.row_shift(x_p, rows, m_shift),
-        lambda: K.row_shift_plain(x_p, rows, m_shift),
-        tol=0.0, work=(4.0 * k2_floats, 0.0),
-        library_fn=lambda: torch.gather(x_p, 2, idx2),
-    )
-    results['row_shift']['shape'] = f'{tuple(x_p.shape)} -> {m_shift}'
+    results['row_shift'] = compare_row_shift(
+        'row_shift', 'row_shift', (x_p, rows, statics.m_shift), {})
     log(f'    row_shift statics: {statics}')
-    del x_p, rows, idx2
+    del x_p, rows
     # Exactness only: widths that are no multiple of 4, the widest output,
     # the narrowest padded row, starts outside the contract (each index
     # clamps into its row), and rows one float off 16-byte alignment.
@@ -675,6 +767,33 @@ def kernel_phase(device, captured):
             results['banded_line_resample']['max_abs_err'], err)
         log(f'    banded_line_resample taps={rung}: max_abs_err {err}')
     torch.cuda.empty_cache()
+    return results
+
+
+def path_kernel_phase(device, chain, stack, plans):
+    """The row-shift launches of one call of the one-program chain and of
+    the dense warp, at the arguments phase 6 will give them: each recorded
+    launch against its plain version bit for bit, with its times and bound.
+    Returns {label: compare() result}."""
+    import torch
+
+    from vkit_tpu_torch.mechanism.batched import batched_plan_warp
+
+    results = {}
+    for path, run in (
+            ('chain', chain),
+            ('dense', lambda: batched_plan_warp(
+                plans, stack, mode='dense', border_value=0.0,
+                canvas_shape=DENSE_CANVAS))):
+        calls = record_row_shifts(run)
+        sync(device)
+        check(len(calls) == 2, f'{path}: {len(calls)} row-shift launches in '
+              'one call, not the two passes')
+        for (name, args, kwargs), which in zip(calls, ('V', 'H')):
+            label = f'{name}/{path} pass {which}'
+            results[label] = compare_row_shift(label, name, args, kwargs)
+        del calls
+        torch.cuda.empty_cache()
     return results
 
 
@@ -1315,6 +1434,406 @@ def catalog_phase(device, side: int = 640):
     return results
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the training path, the one-program chain, the dense two-pass.
+# ---------------------------------------------------------------------------
+
+NARROW_NET = dict(stage_features=(32, 64), fpn_features=32)
+# batched_plan_warp(mode='dense') against mode='gather' on a smooth image
+# (tests/test_torch_dense_warp.py states the same): mean LSB inside the
+# active mask eroded by 4 px, max LSB inside it eroded by one 16-px node
+# cell.  The two-pass filters with a sheared footprint, and the gather
+# reads node-interpolated positions.
+DENSE_VS_GATHER_MEAN = 0.5
+DENSE_VS_GATHER_MAX = 8.0
+
+
+def training_path(device, planner, seed: int, side: int = 640,
+                  batch: int = 8, timed_steps: int = 4):
+    """synthesize_stream as bench config 6 calls it, char gaussian maps on,
+    kept on the device -> synth_to_train_batch -> train steps of the default
+    TextDetectionNet (64-128-256-512, FPN 128, bfloat16): one warm-up step
+    and ``timed_steps`` timed ones on fresh batches, then ``timed_steps``
+    on the last batch repeated.  Returns the trained state and the
+    readings."""
+    import torch
+
+    from vkit_tpu_torch.models import (
+        create_model,
+        create_optimizer,
+        init_train_state,
+        make_train_step,
+        synth_to_train_batch,
+    )
+    from vkit_tpu_torch.synth import (
+        CropConfig,
+        RegionStreamConfig,
+        synthesize_stream,
+    )
+
+    model = create_model()
+    check(model.stage_features == (64, 128, 256, 512)
+          and model.fpn_features == 128 and model.dtype == torch.bfloat16,
+          'the default detector is not the full-width bfloat16 net')
+    optimizer = create_optimizer(1e-3)
+    train_step = make_train_step(model, optimizer)
+    crop_size = side * 4 // 5
+    torch.cuda.reset_peak_memory_stats()
+    state = train_batch = None
+    losses, loop_step_seconds = [], []
+    sync(device)
+    # From the first request on: the stream prepares batches ahead while a
+    # step runs, so a window that opens later would count batches it did
+    # not produce.
+    loop_begin = time.perf_counter()
+    for idx, result in enumerate(synthesize_stream(
+            planner, batch, 5, np.random.default_rng(seed),
+            num_batches=1 + timed_steps,
+            crop_config=CropConfig(core_size=crop_size, num_per_page=2),
+            emit_char_gaussians=True,
+            region_config=RegionStreamConfig(num_crops_per_page=2),
+            keep_on_device=True, device=device)):
+        check_synth(result, batch, side, crop_size)
+        check_regions(result.text_regions)
+        train_batch = synth_to_train_batch(
+            result.images, result.label_stack, result.active_masks,
+            char_gaussians=result.char_gaussian_maps)
+        check(all(field.device.type == 'cuda' for field in train_batch),
+              'the train batch left the card')
+        check(tuple(train_batch.char_masks.shape)
+              == (batch, side // 2, side // 2)
+              and float(train_batch.char_masks.sum()) > 0
+              and float(train_batch.char_gaussians.max()) > 0.3,
+              'the label bridge made empty targets')
+        if state is None:
+            state = init_train_state(model, optimizer, train_batch.images,
+                                     seed=0, device=device)
+        sync(device)
+        begin = time.perf_counter()
+        state, metrics = train_step(state, train_batch)
+        sync(device)
+        loop_step_seconds.append(time.perf_counter() - begin)
+        losses.append(float(metrics['loss']))
+    loop_seconds = time.perf_counter() - loop_begin
+    check(len(losses) == 1 + timed_steps, f'{len(losses)} train steps ran')
+
+    # The step alone: the same batch again, and its own peak memory (the
+    # phase's peak above includes the stream's region flatten).
+    phase_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    repeat_losses, alone_seconds = [], []
+    for _ in range(timed_steps):
+        sync(device)
+        begin = time.perf_counter()
+        state, metrics = train_step(state, train_batch)
+        sync(device)
+        alone_seconds.append(time.perf_counter() - begin)
+        repeat_losses.append(float(metrics['loss']))
+    step_peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses + repeat_losses)),
+          f'a loss is not finite: {losses} {repeat_losses}')
+    check(repeat_losses[-1] < repeat_losses[0],
+          f'the loss on a repeated batch did not fall: {repeat_losses}')
+    check(int(state.step) == 1 + 2 * timed_steps, f'step {int(state.step)}')
+    check(all(p.device.type == 'cuda' and p.dtype == torch.float32
+              for p in state.params.values()),
+          'parameters are not float32 on the card')
+    with torch.no_grad():
+        outputs = torch.func.functional_call(
+            model, state.params, (train_batch.images,))
+    check(all(tuple(o.shape) == (batch, side // 2, side // 2, 1)
+              and o.dtype == torch.float32
+              and bool(torch.isfinite(o).all()) for o in outputs),
+          f'detector outputs {[tuple(o.shape) for o in outputs]}')
+    return state, {
+        'pages_per_s': (1 + timed_steps) * batch / loop_seconds,
+        'warmup_step_seconds': loop_step_seconds[0],
+        'loop_step_seconds': loop_step_seconds[1:],
+        'alone_step_seconds': alone_seconds,
+        'losses': losses, 'repeat_losses': repeat_losses,
+        'peak_bytes': phase_peak,
+        'step_peak_bytes': step_peak,
+        'parameters': sum(p.numel() for p in state.params.values()),
+    }
+
+
+def detector_agreement(device, side: int = 128):
+    """One forward of the narrow net in float32 on the card and on the CPU
+    from the same state: max abs difference of the three outputs."""
+    import torch
+
+    from vkit_tpu_torch.models import (
+        create_model,
+        create_optimizer,
+        init_train_state,
+    )
+
+    images = torch.from_numpy(np.random.default_rng(31).integers(
+        0, 256, (2, side, side, 3), dtype=np.uint8))
+    model = create_model(dtype=torch.float32, **NARROW_NET)
+    state = init_train_state(model, create_optimizer(), images, seed=1,
+                             device=device)
+    host = create_model(dtype=torch.float32, **NARROW_NET)
+    host.load_state_dict({k: v.cpu() for k, v in state.params.items()})
+    with torch.no_grad():
+        card_out = model(images.to(device))
+        host_out = host(images)
+    err = max(float((a.cpu() - b).abs().max())
+              for a, b in zip(card_out, host_out))
+    check(err <= 1e-3, f'detector card vs CPU differ by {err}')
+    return err
+
+
+def checkpoint_round_trip(state):
+    """CheckpointManager.save from the card and restore onto it: equal
+    tensors, step and metadata."""
+    import shutil
+
+    import torch
+
+    from vkit_tpu_torch.models import CheckpointManager
+
+    root = REPO / 'build' / 'chip_smoke_checkpoints'
+    shutil.rmtree(root, ignore_errors=True)
+    manager = CheckpointManager(root)
+    begin = time.perf_counter()
+    manager.save(state, metadata={'pages_seen': 72})
+    restored = manager.restore(state)
+    seconds = time.perf_counter() - begin
+    check(manager.latest_step() == int(state.step) == int(restored.step),
+          'checkpoint step')
+    check(manager.read_metadata() == {'step': int(state.step),
+                                      'pages_seen': 72},
+          f'checkpoint metadata {manager.read_metadata()}')
+    check(restored.step.device.type == 'cuda'
+          and restored.params.keys() == state.params.keys()
+          and all(v.device.type == 'cuda' and torch.equal(v, state.params[k])
+                  for k, v in restored.params.items()),
+          'restored parameters differ')
+    saved, loaded = state.opt_state['state'], restored.opt_state['state']
+    check(saved.keys() == loaded.keys() and len(saved) == len(state.params)
+          and all(torch.equal(loaded[k][name], value)
+                  and loaded[k][name].device == value.device
+                  for k, entry in saved.items()
+                  for name, value in entry.items()),
+          'restored optimizer state differs')
+    size = sum(f.stat().st_size for f in root.rglob('*') if f.is_file())
+    shutil.rmtree(root, ignore_errors=True)
+    return seconds, size
+
+
+def prefetch_check(device, batches: int = 4):
+    """parallel.prefetch_map moves host batches onto the card (pinned
+    memory, a side stream) in order."""
+    import torch
+
+    from vkit_tpu_torch.parallel import prefetch_map
+
+    def produce(idx):
+        return {'images': np.full((8, 64, 64, 3), idx, np.uint8),
+                'index': idx}
+
+    seen = list(prefetch_map(produce, batches, device=device))
+    check([b['index'] for b in seen] == list(range(batches))
+          and all(isinstance(b['images'], torch.Tensor)
+                  and b['images'].device.type == 'cuda'
+                  and int(b['images'].max()) == int(b['images'].min()) == i
+                  for i, b in enumerate(seen)),
+          'prefetch_map lost the order or the device')
+
+
+def chain_inputs(device, seed: int, side: int = 640, batch: int = 64):
+    """parallel.synthesize_batch's arguments at bench config 1's shape
+    (batch 64 of 640 x 640 x 3 uint8, level 5, resized to 640 x 640), on
+    the card; ``chain()`` calls it once on them."""
+    import torch
+
+    from vkit_tpu_torch import convert
+    from vkit_tpu_torch.parallel import (
+        sample_synthesis_params,
+        synthesize_batch,
+    )
+
+    gen = np.random.default_rng(seed)
+    images = torch.from_numpy(
+        gen.integers(0, 256, (batch, side, side, 3), dtype=np.uint8)
+    ).to(device)
+    params, statics = sample_synthesis_params(gen, batch, side, side, level=5)
+    params = convert.synthesis_params(params, device)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+
+    def chain():
+        return synthesize_batch(images, params, generator, statics,
+                                out_shape=(side, side))
+
+    return images, chain
+
+
+def chain_path(device, images, chain, warmups: int = 2, steps: int = 5):
+    """The chain on chain_inputs(): images/s over a plain loop closed by
+    one synchronize, after ``warmups`` calls."""
+    import torch
+
+    batch, side = images.shape[:2]
+    out = None
+    for _ in range(warmups):
+        out = chain()
+    sync(device)
+    begin = time.perf_counter()
+    for _ in range(steps):
+        out = chain()
+    sync(device)
+    seconds = time.perf_counter() - begin
+    check(tuple(out.shape) == (batch, side, side, 3)
+          and out.dtype == torch.uint8 and out.device.type == 'cuda',
+          f'chain output {tuple(out.shape)} {out.dtype} on {out.device}')
+    check(not torch.equal(out, images) and float(out.float().std()) > 1.0,
+          'the chain changed nothing')
+    return steps * batch / seconds
+
+
+def chain_agreement(device, side: int = 320, batch: int = 4):
+    """The chain with noise off on the card and on the CPU (JPEG on for
+    every other sample, resized to 256 x 256): max LSB apart."""
+    import torch
+
+    from vkit_tpu_torch.parallel import (
+        sample_synthesis_params,
+        synthesize_batch,
+    )
+
+    gen = np.random.default_rng(41)
+    images = torch.from_numpy(
+        gen.integers(0, 256, (batch, side, side, 3), dtype=np.uint8))
+    params, statics = sample_synthesis_params(gen, batch, side, side, level=5)
+    params = params._replace(
+        noise_stds=np.zeros(batch, np.float32),
+        jpeg_enables=(np.arange(batch) % 2 == 0).astype(np.float32))
+    outs = []
+    for dev in (device, torch.device('cpu')):
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(0)
+        outs.append(synthesize_batch(images.to(dev), params, generator,
+                                     statics, out_shape=(256, 256)).cpu())
+    err = int((outs[0].int() - outs[1].int()).abs().max())
+    check(err <= 1, f'chain card vs CPU differ by {err} LSB')
+    return err
+
+
+def _mild_camera_plan(rng, side: int):
+    from vkit_tpu_torch.mechanism import distortion
+
+    axis = [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]][int(rng.integers(0, 2))]
+    config = {
+        'curve_alpha': float(rng.uniform(-1.5, 1.5)),
+        'curve_beta': float(rng.uniform(-1.5, 1.5)),
+        'curve_direction': float(rng.uniform(0, 45)),
+        'curve_scale': 1.0,
+        'camera_model_config': {
+            'rotation_unit_vec': axis,
+            'rotation_theta': float(rng.uniform(-1.0, 1.0)),
+        },
+        'grid_size': 32,
+    }
+    return distortion.camera_cubic_curve.plan(config, (side, side), rng)
+
+
+DENSE_CANVAS = (672, 672)
+# Phase 3 builds the chain's and the dense warp's inputs from these seeds to
+# check their kernel launches, phase 6 builds them again for the counted runs.
+CHAIN_SEED = 600
+DENSE_SEED = 700
+
+
+def dense_inputs(device, seed: int, side: int = 640, batch: int = 8):
+    """batched_plan_warp(mode='dense')'s arguments: ``batch`` x 640 x 640 x
+    5 float32 (a smooth image and two label planes) and mild camera plans.
+    The dense mode sends a whole batch to the gather when one sample's
+    field needs more than 24 taps, so each drawn plan is first tried alone
+    (on a fixed canvas a sample's route does not depend on its neighbours)
+    and kept if the two-pass took it.  Returns (stack as numpy, stack on
+    the card, the kept plans, how many were drawn)."""
+    import torch
+    from scipy.ndimage import gaussian_filter
+
+    from vkit_tpu_torch.mechanism.batched import batched_plan_warp
+    from vkit_tpu_torch.ops import kernels as K
+
+    gen = np.random.default_rng(seed)
+    stack_np = gaussian_filter(
+        gen.random((batch, side, side, 5)) * 255, sigma=(0, 2, 2, 0)
+    ).astype(np.float32)
+    stack = torch.from_numpy(stack_np).to(device)
+
+    def shifts():
+        return K.LAUNCHES['row_shift_window_slab'] + K.LAUNCHES['row_shift']
+
+    plans, drawn = [], 0
+    while len(plans) < batch:
+        check(drawn < 20 * batch, f'only {len(plans)} of {drawn} mild camera '
+              'plans took the dense two-pass')
+        plan = _mild_camera_plan(gen, side)
+        drawn += 1
+        before = shifts()
+        batched_plan_warp([plan], stack[:1], mode='dense',
+                          canvas_shape=DENSE_CANVAS)
+        if shifts() > before:
+            plans.append(plan)
+    return stack_np, stack, plans, drawn
+
+
+def dense_path(device, stack_np, stack, plans, drawn):
+    """The counted run of batched_plan_warp(mode='dense') on
+    dense_inputs(): it is held to mode='gather' inside the active masks and
+    to its own run on the CPU (two samples).  Returns the readings."""
+    import torch
+    from scipy.ndimage import binary_erosion
+
+    from vkit_tpu_torch.host import warp_active_mask
+    from vkit_tpu_torch.mechanism.batched import batched_plan_warp
+    from vkit_tpu_torch.ops import kernels as K
+
+    batch, side = stack.shape[:2]
+    canvas = DENSE_CANVAS
+    sync(device)
+    K.reset_launch_counts()
+    begin = time.perf_counter()
+    dense, shapes, _ = batched_plan_warp(plans, stack, mode='dense',
+                                         border_value=0.0,
+                                         canvas_shape=canvas)
+    sync(device)
+    seconds = time.perf_counter() - begin
+    launches = dict(K.LAUNCHES)
+    check(launches['row_shift_window_slab'] + launches['row_shift'] == 2,
+          f'the dense batch did not take the two-pass: {launches}')
+    check(tuple(dense.shape) == (batch,) + tuple(canvas) + (5,)
+          and dense.dtype == torch.float32
+          and bool(torch.isfinite(dense).all()),
+          f'dense output {tuple(dense.shape)} {dense.dtype}')
+    gather = batched_plan_warp(plans, stack, mode='gather',
+                               canvas_shape=canvas)[0]
+    diff = (dense - gather).abs().amax(dim=-1).cpu().numpy()
+    mean_err = max_err = 0.0
+    for i, plan in enumerate(plans):
+        h, w = shapes[i]
+        active = warp_active_mask(plan).mat.astype(bool)
+        near = binary_erosion(active, iterations=4)
+        core = binary_erosion(active, iterations=16)
+        check(core.sum() > side * side // 2, 'the active mask is small')
+        mean_err = max(mean_err, float(diff[i, :h, :w][near].mean()))
+        max_err = max(max_err, float(diff[i, :h, :w][core].max()))
+    check(mean_err <= DENSE_VS_GATHER_MEAN and max_err <= DENSE_VS_GATHER_MAX,
+          f'dense vs gather: mean {mean_err}, max {max_err} LSB')
+    host = batched_plan_warp(plans[:2], torch.from_numpy(stack_np[:2]),
+                             mode='dense', canvas_shape=canvas)[0]
+    host_err = float((dense[:2].cpu() - host).abs().max())
+    check(host_err <= 1e-3, f'dense card vs CPU differ by {host_err}')
+    return {'seconds': seconds, 'launches': launches, 'drawn': drawn,
+            'mean_vs_gather': mean_err, 'max_vs_gather': max_err,
+            'card_vs_cpu': host_err}
+
+
 def main() -> int:
     import torch
 
@@ -1362,9 +1881,16 @@ def main() -> int:
         f'text-region stream on): {per_batch}')
     kernels = kernel_phase(device, captured)
     del captured
-    # K1's second shape is a log line; the JSON line has one entry a kernel.
+    # K1 and K2 as phase 6's other two paths launch them: the same seeds
+    # give phase 6 the same arguments.
+    chain_images, chain = chain_inputs(device, seed=CHAIN_SEED)
+    dense_in = dense_inputs(device, seed=DENSE_SEED)
+    # K1's other shapes are log lines; the JSON line has one entry a kernel.
     shapes = dict(kernels)
+    shapes.update(path_kernel_phase(device, chain, *dense_in[1:3]))
     del kernels['row_shift_window_slab/flatten']
+    del chain_images, chain, dense_in
+    torch.cuda.empty_cache()
     for name, res in shapes.items():
         log(f'[3 kernel] {name} at {res["shape"]}: max_abs_err '
             f'{res["max_abs_err"]} bit_exact {res["bit_exact"]} ms '
@@ -1437,12 +1963,70 @@ def main() -> int:
         for name, res in catalog.items()
     ) + f' | {card}')
 
+    # 6. The training path, the one-program chain, the dense two-pass: each
+    # with the launch counters zeroed just before and read just after.
+    K.reset_launch_counts()
+    state, train = training_path(device, planner, seed=500)
+    train_launches = dict(K.LAUNCHES)
+    check(all(train_launches[name] for name in TRAINING_PATH_KERNELS),
+          f'a kernel never launched on the training path: {train_launches}')
+    log(f'[6 training] synthesize_stream (bench config 6\'s program, char '
+        f'gaussian maps on) -> synth_to_train_batch -> train step of the '
+        f'default TextDetectionNet (64-128-256-512, FPN 128, bfloat16, '
+        f'{train["parameters"]} parameters), 8 x 640x640: '
+        f'{train["pages_per_s"]} pages/s over 5 batches from the first '
+        f'request to the last step (the warm-up step, '
+        f'{train["warmup_step_seconds"]} s, included); s per train step in '
+        f'the loop {train["loop_step_seconds"]}, alone on a repeated batch '
+        f'{train["alone_step_seconds"]}; losses {train["losses"]}, on the '
+        f'repeated batch {train["repeat_losses"]}; peak device memory '
+        f'{train["peak_bytes"]} bytes over the loop, '
+        f'{train["step_peak_bytes"]} bytes over the repeated steps alone '
+        f'| launches {train_launches} | {card}')
+    forward_err = detector_agreement(device)
+    ckpt_seconds, ckpt_bytes = checkpoint_round_trip(state)
+    log(f'[6 detector] narrow net float32 forward card vs CPU {forward_err}; '
+        f'checkpoint save from the card + restore onto it {ckpt_seconds} s, '
+        f'{ckpt_bytes} bytes on disk, tensors, step and metadata equal '
+        f'| {card}')
+    del state
+
+    chain_images, chain = chain_inputs(device, seed=CHAIN_SEED)
+    K.reset_launch_counts()
+    chain_rate = chain_path(device, chain_images, chain)
+    chain_launches = dict(K.LAUNCHES)
+    check(chain_launches['row_shift_window_slab']
+          + chain_launches['row_shift'] > 0,
+          f'the chain launched no row-shift kernel: {chain_launches}')
+    chain_err = chain_agreement(device)
+    prefetch_check(device)
+    log(f'[6 chain] synthesize_batch {chain_rate} images/s (batch 64 of '
+        f'640x640x3 uint8, level 5, out 640x640; 5 steps of a plain loop '
+        f'after 2 warm-ups) | launches {chain_launches} | noise off at 320 '
+        f'px, card vs CPU {chain_err} LSB; prefetch_map keeps order onto the '
+        f'card | {card}')
+    del chain_images, chain
+    torch.cuda.empty_cache()
+
+    dense = dense_path(device, *dense_inputs(device, seed=DENSE_SEED))
+    log(f'[6 dense] batched_plan_warp(mode=\'dense\') 8 x 640x640x5 -> '
+        f'672x672, mild camera plans ({dense["drawn"]} drawn for 8 that the '
+        f'two-pass takes): {dense["seconds"]} s with host planning | '
+        f'launches {dense["launches"]} | vs mode=\'gather\' inside the '
+        f'active masks: mean {dense["mean_vs_gather"]} LSB (4 px in), max '
+        f'{dense["max_vs_gather"]} LSB (16 px in) | card vs CPU '
+        f'{dense["card_vs_cpu"]} | {card}')
+    by_path = {'serving': launches, 'training': train_launches,
+               'chain': chain_launches, 'dense': dense['launches']}
+
     print(json.dumps({'kernels': [
         {
             'name': name, 'route': 'cuda',
             'source': KERNEL_SOURCES[name][0],
             'replaces': KERNEL_SOURCES[name][1],
-            'launches': launches[name],
+            'launches': sum(counts[name] for counts in by_path.values()),
+            'launches_by_path': {path: counts[name]
+                                 for path, counts in by_path.items()},
             'max_abs_err': res['max_abs_err'],
             'ms': res['ms'], 'plain_ms': res['plain_ms'],
             'bound_ms': res['bound_ms'], 'bound_by': res['bound_by'],

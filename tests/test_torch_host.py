@@ -50,7 +50,7 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / 'vkit_tpu_torch'
-FORBIDDEN = ('vkit_tpu', 'jax', 'flax', 'optax', 'sklearn')
+FORBIDDEN = ('vkit_tpu', 'jax', 'flax', 'optax', 'orbax', 'sklearn')
 
 
 # ---------------------------------------------------------------------------
@@ -215,10 +215,13 @@ for info in pkgutil.walk_packages(vkit_tpu_torch.__path__, 'vkit_tpu_torch.'):
     importlib.import_module(info.name)
 loaded = sorted(
     name for name in sys.modules
-    if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'sklearn',
-                              'vkit_tpu')
+    if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax',
+                              'sklearn', 'vkit_tpu')
 )
-print(json.dumps({'loaded': loaded,
+reached = sorted(name for name in sys.modules
+                 if name.startswith(('vkit_tpu_torch.models',
+                                     'vkit_tpu_torch.parallel')))
+print(json.dumps({'loaded': loaded, 'reached': reached,
                   'jax_platforms': os.environ.get('JAX_PLATFORMS'),
                   'modules': sum(n.startswith('vkit_tpu_torch')
                                  for n in sys.modules)}))
@@ -235,6 +238,12 @@ def test_importing_the_port_loads_no_jax_and_no_vkit_tpu():
     assert report['loaded'] == []
     assert report['jax_platforms'] is None
     assert report['modules'] > 80
+    assert report['reached'] == [
+        'vkit_tpu_torch.models', 'vkit_tpu_torch.models.checkpoint',
+        'vkit_tpu_torch.models.data', 'vkit_tpu_torch.models.text_detection',
+        'vkit_tpu_torch.models.train', 'vkit_tpu_torch.parallel',
+        'vkit_tpu_torch.parallel.batch', 'vkit_tpu_torch.parallel.prefetch',
+    ]
 
 
 def _forbidden_imports(path: Path):
@@ -409,8 +418,14 @@ PORTED = {
     },
     'mechanism/batched_random.py': {'batch_random_distort',
                                     'batch_random_geometric_distort'},
+    'models/checkpoint.py': {'CheckpointManager.__init__',
+                             'CheckpointManager._gc',
+                             'CheckpointManager:fields'},
+    'models/train.py': {'create_optimizer'},
     'native/__init__.py': {'_build', 'load_library'},
     'ops/common.py': {'expand_chw'},
+    'parallel/__init__.py': {'=__all__'},
+    'parallel/prefetch.py': {'DevicePrefetcher.__init__', 'prefetch_map'},
     'synth/__init__.py': {'=__all__'},
     'synth/device.py': {'_composite_overlays', 'synthesize_stream'},
 }

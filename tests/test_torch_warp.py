@@ -421,8 +421,14 @@ def test_kernel_counts_untouched_on_cpu(page_images):
 
 
 def test_dense_mode_not_ported(page_images):
+    """The name dates from when ``mode='dense'`` raised
+    NotImplementedError: it runs now (tests/test_torch_dense_warp.py holds
+    it to vkit_tpu), and only an unknown mode is refused."""
     plans = [D.rotate.plan({'angle': 5}, page_images.shape[1:3],
                            np.random.default_rng(0))] * 3
-    with pytest.raises(NotImplementedError):
+    got, shapes, _ = TB.batched_plan_warp(
+        plans, torch.from_numpy(page_images), mode='dense')
+    assert got.dtype == torch.uint8 and shapes == [p.dst_shape for p in plans]
+    with pytest.raises(ValueError):
         TB.batched_plan_warp(plans, torch.from_numpy(page_images),
-                             mode='dense')
+                             mode='legacy')

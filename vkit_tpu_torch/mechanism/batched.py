@@ -16,7 +16,7 @@ The geometric half: the device helpers ``_coarse_gather_remap``,
 ``_coarse_gather_warp``, ``_upsample_node_maps``, ``_scatter_samples``,
 ``_banded_group_scatter``, ``_merge_subbatches``, ``_affine_sub_warp``,
 ``_mean_pool2`` and ``_coarse_mxu_warp``, and ``batched_plan_warp`` in modes
-``auto`` and ``gather``.  The host side (``plan_backward_maps``,
+``auto``, ``gather`` and ``dense``.  The host side (``plan_backward_maps``,
 ``_build_coarse_nodes``, ``_bucket_pad``, ``LazyCoverages``, the affine /
 banded / gather routing, the plans) is the reference's own code, so both
 packages send every sample down the same route.  Scatters write in place
@@ -55,7 +55,12 @@ from ..ops.warp_banded import (
 from ..ops.warp_mxu import (
     apply_affine_warp,
     apply_affine_warp_quad,
+    apply_dense_warp,
+    dense_warp_positions,
+    line_tap_needs,
+    line_window_needs,
     plan_affine_warp,
+    plan_dense_warp_from_positions,
     quadrant_reduce_mats,
 )
 from .distortion.photometric.base import OutOfBoundBehavior
@@ -694,6 +699,93 @@ def _coarse_mxu_warp(images, nodes, src_shape, canvas, border_value,
     return warped, dev_maps
 
 
+def _dense_plan_warp(plans, images, shapes, canvas, border_value, taps_max,
+                     return_maps):
+    """``batched_plan_warp(mode='dense')``: every sample's full-resolution
+    backward maps, padded to the batch canvas by linear extension."""
+    n, h_in, w_in = images.shape[:3]
+    h_max, w_max = canvas
+    map_list = []
+    coverages = []
+    for plan in plans:
+        map_y, map_x, cov = plan_backward_maps(plan, (h_in, w_in))
+        map_list.append((map_y, map_x))
+        coverages.append(cov)
+
+    map_ys = np.zeros((n, h_max, w_max), dtype=np.float32)
+    map_xs = np.zeros((n, h_max, w_max), dtype=np.float32)
+    for idx, (my, mx) in enumerate(map_list):
+        h, w = my.shape
+        map_ys[idx, :h, :w] = my
+        map_xs[idx, :h, :w] = mx
+        # Pad beyond each sample's canvas by linear extension (smooth maps
+        # keep the two-pass tap budget small; extended pixels resolve to
+        # the border or are gated by the active mask downstream).
+        if w < w_max:
+            pad = np.arange(1, w_max - w + 1, dtype=np.float64)
+            step_x = (mx[:, -1:] - mx[:, :1]) / max(w - 1, 1)
+            step_y = (my[:, -1:] - my[:, :1]) / max(w - 1, 1)
+            map_xs[idx, :h, w:] = mx[:, -1:] + pad[None, :] * step_x
+            map_ys[idx, :h, w:] = my[:, -1:] + pad[None, :] * step_y
+        if h < h_max:
+            pad = np.arange(1, h_max - h + 1, dtype=np.float64)
+            step_x = (map_xs[idx, h - 1] - map_xs[idx, 0]) / max(h - 1, 1)
+            step_y = (map_ys[idx, h - 1] - map_ys[idx, 0]) / max(h - 1, 1)
+            map_xs[idx, h:] = map_xs[idx, h - 1][None] \
+                + pad[:, None] * step_x[None]
+            map_ys[idx, h:] = map_ys[idx, h - 1][None] \
+                + pad[:, None] * step_y[None]
+
+    # Routing, as the reference's: the two-pass covers fields whose
+    # non-separable residual fits the tap budget (affine chains, mild grid
+    # warps); a batch that holds a stronger draw runs as one
+    # bilinear-gather program instead.
+    pos_v, map_xs_fixed, row_monotone = dense_warp_positions(
+        map_ys, map_xs, (h_in, w_in)
+    )
+    needs = np.maximum(
+        line_tap_needs(pos_v), line_tap_needs(map_xs_fixed)
+    )
+
+    def window_fits(spans, in_len):
+        slab = in_len + spans + taps_max <= 1792
+        return (spans + taps_max <= 832) | slab
+
+    windows_ok = (
+        window_fits(line_window_needs(pos_v), h_in)
+        & window_fits(line_window_needs(map_xs_fixed), w_in)
+    )
+    two_pass = bool(
+        (row_monotone & (needs <= taps_max) & windows_ok).all()
+    )
+
+    if two_pass:
+        # A planner assert here is the reference's own routing (its window
+        # estimate undershot, rare): the batch takes the gather route, as
+        # there.  It hides no failure of a kernel or of the device.
+        try:
+            plan_, statics = plan_dense_warp_from_positions(
+                pos_v, map_xs_fixed, (h_in, w_in), taps_max=taps_max
+            )
+        except AssertionError:
+            plan_ = None
+        if plan_ is not None:
+            warped = apply_dense_warp(
+                images, convert.dense_warp_plan(plan_, images.device),
+                statics, border_value=border_value,
+            )
+            if return_maps:
+                return warped, shapes, coverages, (map_ys, map_xs)
+            return warped, shapes, coverages
+
+    warped, dev_maps = _coarse_gather_warp(
+        images, map_list, shapes, (h_max, w_max), border_value
+    )
+    if return_maps:
+        return warped, shapes, coverages, dev_maps
+    return warped, shapes, coverages
+
+
 def _content_boxes(plans, idx):
     return np.asarray([
         (b.up, b.down, b.left, b.right)
@@ -720,22 +812,19 @@ def batched_plan_warp(
       2. everything else -> the coarse-node banded two-pass;
       3. fields the banded plan rejects -> the 2x-downscale tail or the
          bilinear-gather program.
-    ``mode='gather'`` forces 3 for every sample.  ``mode='dense'`` (the
-    reference's legacy full-resolution two-pass) is not ported yet.
+    ``mode='gather'`` forces 3 for every sample.  ``mode='dense'`` is the
+    reference's legacy route: full-resolution backward maps planned into
+    the dense two-pass (ops/warp_mxu.py) when every sample's field is
+    row-monotone and fits ``taps_max`` taps and a shift window, else the
+    bilinear-gather program for the whole batch.
 
     Returns (warped (N, Hmax, Wmax, C) with the input dtype, result_shapes,
     coverages); with ``return_maps`` also the device (map_ys, map_xs), or
     None when every sample ran the affine route.  Pixels outside a sample's
     coverage are undefined, as in the reference: gate by the active mask.
-    ``taps_max`` only applies to the dense mode; it is kept for signature
-    parity.
+    ``taps_max`` only applies to the dense mode.
     """
-    if mode == 'dense':
-        raise NotImplementedError(
-            "batched_plan_warp(mode='dense') is not ported yet: the legacy "
-            'dense two-pass is queued in ROADMAP.md (1b)'
-        )
-    if mode not in ('auto', 'gather'):
+    if mode not in ('auto', 'gather', 'dense'):
         raise ValueError(f'unknown mode {mode!r}')
     if device is None and isinstance(images, torch.Tensor):
         device = images.device
@@ -859,6 +948,10 @@ def batched_plan_warp(
             )
             return out, shapes, coverages, dev_maps
         return out, shapes, coverages
+
+    if mode == 'dense':
+        return _dense_plan_warp(plans, images, shapes, (h_max, w_max),
+                                border_value, taps_max, return_maps)
 
     # Coarse-node paths: lattice maps evaluated at the nodes only, matrix
     # and nop maps analytically; coverages materialize on access.

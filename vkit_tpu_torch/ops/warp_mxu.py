@@ -1,16 +1,24 @@
-"""Batched affine warp as per-line shifts + a 3-tap blend (two-shear form).
+"""Batched warps as per-line shifts + a tap blend (two-pass form).
 
-Port of vkit_tpu/ops/warp_mxu.py: the device half (``apply_line_resample``,
-``apply_affine_warp``, ``apply_affine_warp_quad``) on tensors, and the host
-planners (``plan_line_resample``, ``plan_affine_warp``,
-``quadrant_reduce_mats`` and their plan types), which are the reference's
-own numpy code.  A plan holds numpy arrays; vkit_tpu_torch.convert moves
-it to a device.
+Port of vkit_tpu/ops/warp_mxu.py.  The affine two-shear warp: the device
+half (``apply_line_resample``, ``apply_affine_warp``,
+``apply_affine_warp_quad``, ``warp_affine_batch_mxu``) on tensors, and the
+host planners (``plan_line_resample``, ``plan_affine_warp``,
+``quadrant_reduce_mats`` and their plan types).  The dense two-pass for
+arbitrary smooth backward fields: the host planners
+(``plan_dense_line_resample``, ``line_tap_needs``, ``line_window_needs``,
+``dense_warp_positions``, ``plan_dense_warp_from_positions``,
+``plan_dense_warp`` and the ``DenseLinePlan`` / ``DenseWarpPlan`` types
+with their statics) and the device half (``apply_dense_line_resample``,
+``apply_dense_warp``, ``warp_dense_batch_mxu``).  The planners are the
+reference's own numpy code.  A plan holds numpy arrays;
+vkit_tpu_torch.convert moves it to a device.
 
 The integer part of each line's offset is a per-row shift (the row-shift
-kernels of ops/kernels.py); the slope part is a 3-tap gather and hat blend.
-The reference built that blend as a one-hot matmul for the TPU's matrix
-unit; a gather computes the same values without the (N, M, 3J) operand.
+kernels of ops/kernels.py); what is left is a gather of 3 taps (affine) or
+T taps (dense) and a hat blend.  The reference built that blend as a
+one-hot matmul for the TPU's matrix unit; a gather computes the same
+values without the one-hot operand.
 """
 from typing import NamedTuple, Optional, Tuple
 
@@ -18,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import convert
 from .kernels import ROLL_WINDOW, WINDOW, row_shift, row_shift_window_slab
 from .warp import to_image_dtype
 
@@ -272,21 +281,249 @@ def quadrant_reduce_mats(
 
 
 # ---------------------------------------------------------------------------
+# Dense displacement-field warp (camera models / MLS): the same two-pass
+# shifts + taps scheme generalized to arbitrary smooth backward fields.
+# Per-line offsets absorb the field's dominant structure (the curve) as
+# free integer shifts; the leftover per-pixel residual widens the tap
+# count from 3 to T.  Host planners (numpy).
+# ---------------------------------------------------------------------------
+
+
+class DenseLinePlan(NamedTuple):
+    i0: np.ndarray      # (N, J) int32: floor(slope_n * j) - i0_min
+    starts: np.ndarray  # (N, L) int32
+    u: np.ndarray       # (N, L, J) f32: tap-space position in [0, T-2]
+
+
+class DenseLineStatics(NamedTuple):
+    pad_lo: int
+    m_padded: int
+    m_shift: int
+    out_len: int
+    taps: int
+
+
+def plan_dense_line_resample(
+    pos: np.ndarray,
+    in_len: int,
+    taps_max: int = 24,
+) -> Tuple[DenseLinePlan, DenseLineStatics]:
+    """Plan resampling lines at arbitrary positions.
+
+    ``pos``: (N, L, J) float64 — source coordinate (along the resampled
+    axis) for line l, output index j.  The per-line offset and a shared
+    per-sample slope are factored out; what remains determines the tap
+    count T.  Fields whose non-separable residual exceeds ``taps_max``
+    taps are rejected (use the host path for those).
+    """
+    pos = np.asarray(pos, dtype=np.float64)
+    n, l, j = pos.shape
+
+    slopes = (pos[:, :, -1] - pos[:, :, 0]).mean(axis=1) / max(j - 1, 1)
+    jj = np.arange(j, dtype=np.float64)
+    i0_abs = np.floor(slopes[:, None] * jj[None, :]).astype(np.int64)  # (N, J)
+    rel = pos - i0_abs[:, None, :]
+    k = np.floor(rel.min(axis=2)).astype(np.int64)                     # (N, L)
+    u = (rel - k[:, :, None]).astype(np.float32)                       # >= 0
+
+    taps = int(np.ceil(float(u.max()))) + 2
+    assert taps <= taps_max, (
+        f'dense field needs {taps} taps (> {taps_max}); field is too '
+        'non-separable for the device path — use the host remap'
+    )
+    # The reference quantizes the statics hard (there they select the
+    # compiled program); the same ladder here keeps both packages' plans
+    # and routes equal.
+    taps = 6 if taps <= 6 else (12 if taps <= 12 else taps_max)
+
+    # Per-sample offset: mixed slope signs across a batch must not ADD
+    # their spans (a +1 and a -1 slope would otherwise double m_shift).
+    i0_min = i0_abs.min(axis=1)                                     # (N,)
+    m_shift = int((i0_abs.max(axis=1) - i0_min).max()) + taps
+    m_shift = -(-m_shift // 64) * 64
+
+    starts_src = k + i0_min[:, None]
+    pad_lo = _round_up(max(0, -int(starts_src.min())), 128)
+    m_padded = _round_up(
+        max(in_len + pad_lo, int(starts_src.max()) + pad_lo + _ROLL_WINDOW),
+        128,
+    )
+    # Feasible iff SOME shift kernel covers the window: the padded
+    # roll-window path (m_shift <= window - 128) or the borderless
+    # 2048-lane slab path (the same window_ok test the apply uses).
+    rel_min = -pad_lo
+    rel_max = m_padded - _ROLL_WINDOW - pad_lo
+    slab_ok = (
+        in_len + m_shift <= 2048
+        and rel_min >= -(2048 - in_len - m_shift)
+        and rel_max <= 2048 - m_shift
+    )
+    assert slab_ok or m_shift <= _ROLL_WINDOW - 128, (
+        f'shift window {m_shift} (in_len {in_len}) exceeds both kernels'
+    )
+
+    plan = DenseLinePlan(
+        i0=(i0_abs - i0_min[:, None]).astype(np.int32),
+        starts=(starts_src + pad_lo).astype(np.int32),
+        u=u,
+    )
+    statics = DenseLineStatics(
+        pad_lo=pad_lo, m_padded=m_padded, m_shift=m_shift,
+        out_len=j, taps=taps,
+    )
+    return plan, statics
+
+
+class DenseWarpPlan(NamedTuple):
+    pass_v: DenseLinePlan
+    pass_h: DenseLinePlan
+
+
+class DenseWarpStatics(NamedTuple):
+    statics_v: DenseLineStatics
+    statics_h: DenseLineStatics
+
+
+def line_tap_needs(pos: np.ndarray) -> np.ndarray:
+    """Per-sample tap requirement of the shared-slope scheme for (N, L, J)
+    positions — the per-sample form of plan_dense_line_resample's check."""
+    pos = np.asarray(pos, dtype=np.float64)
+    n, l, j = pos.shape
+    slopes = (pos[:, :, -1] - pos[:, :, 0]).mean(axis=1) / max(j - 1, 1)
+    jj = np.arange(j, dtype=np.float64)
+    i0_abs = np.floor(slopes[:, None] * jj[None, :])
+    rel = pos - i0_abs[:, None, :]
+    u = rel - np.floor(rel.min(axis=2))[:, :, None]
+    return np.ceil(u.max(axis=(1, 2))).astype(np.int64) + 2
+
+
+def line_window_needs(pos: np.ndarray) -> np.ndarray:
+    """Per-sample shift-window requirement (i0 span) of the shared-slope
+    scheme — samples beyond the roll window must take the host path."""
+    pos = np.asarray(pos, dtype=np.float64)
+    n, l, j = pos.shape
+    slopes = (pos[:, :, -1] - pos[:, :, 0]).mean(axis=1) / max(j - 1, 1)
+    return np.ceil(np.abs(slopes) * (j - 1)).astype(np.int64)
+
+
+def dense_warp_positions(
+    map_ys: np.ndarray,
+    map_xs: np.ndarray,
+    src_shape: Tuple[int, int],
+):
+    """(pos_v, map_xs_fixed, row_monotone): the two passes' position
+    arrays + a per-sample monotonicity flag.
+
+    Samples whose map_x rows are badly non-monotone cannot use the
+    two-pass decomposition at all; callers route those to the host remap.
+    """
+    map_ys = np.asarray(map_ys, dtype=np.float64)
+    map_xs = np.asarray(map_xs, dtype=np.float64)
+    n, h_out, w_out = map_xs.shape
+    h_in, w_in = src_shape
+
+    dx = np.diff(map_xs, axis=2)
+    row_monotone = dx.reshape(n, -1).min(axis=1) > -0.5
+    if dx.min() <= 0:
+        # Repair tiny seams (grid-cell rounding) with a running max.
+        map_xs = np.maximum.accumulate(map_xs, axis=2)
+
+    # Pass V positions: g(y, u) = map_y(y, x*(y, u)) with map_x(y, x*) = u,
+    # for u over the INPUT column grid.  Rows are monotone in x, so x* is a
+    # 1-D interpolation per row.  Outside the row's x-range EXTRAPOLATE
+    # linearly (np.interp clamps, and a clamped g flattens per-line slopes
+    # at rotated-canvas corners — tap needs then explode and the sample
+    # falls off the device path).
+    u_grid = np.arange(w_in, dtype=np.float64)
+    out_grid = np.arange(w_out, dtype=np.float64)
+    g = np.empty((n, h_out, w_in), dtype=np.float64)
+    for idx in range(n):
+        for y in range(h_out):
+            xs_row = map_xs[idx, y]
+            ys_row = map_ys[idx, y]
+            x_star = np.interp(u_grid, xs_row, out_grid)
+            lo, hi = xs_row[0], xs_row[-1]
+            sx = (w_out - 1) / max(hi - lo, 1e-9)
+            left = u_grid < lo
+            if left.any():
+                x_star[left] = (u_grid[left] - lo) * sx
+            right = u_grid > hi
+            if right.any():
+                x_star[right] = (w_out - 1) + (u_grid[right] - hi) * sx
+            row_g = np.interp(x_star, out_grid, ys_row)
+            sy = (ys_row[-1] - ys_row[0]) / max(w_out - 1, 1)
+            left = x_star < 0
+            if left.any():
+                row_g[left] = ys_row[0] + x_star[left] * sy
+            right = x_star > w_out - 1
+            if right.any():
+                row_g[right] = ys_row[-1] + (x_star[right] - (w_out - 1)) * sy
+            g[idx, y] = row_g
+    # Pass V resamples along the source rows for each input column u:
+    # lines = u (W_in), positions over y = g[., y, u] -> transpose.
+    pos_v = g.transpose(0, 2, 1)                       # (N, W_in, H_out)
+    return pos_v, map_xs, row_monotone
+
+
+def plan_dense_warp_from_positions(
+    pos_v: np.ndarray,
+    map_xs: np.ndarray,
+    src_shape: Tuple[int, int],
+    taps_max: int = 24,
+) -> Tuple[DenseWarpPlan, DenseWarpStatics]:
+    h_in, w_in = src_shape
+    plan_v, statics_v = plan_dense_line_resample(pos_v, h_in, taps_max)
+    plan_h, statics_h = plan_dense_line_resample(map_xs, w_in, taps_max)
+    return (
+        DenseWarpPlan(pass_v=plan_v, pass_h=plan_h),
+        DenseWarpStatics(statics_v=statics_v, statics_h=statics_h),
+    )
+
+
+def plan_dense_warp(
+    map_ys: np.ndarray,
+    map_xs: np.ndarray,
+    src_shape: Tuple[int, int],
+    taps_max: int = 24,
+) -> Tuple[DenseWarpPlan, DenseWarpStatics]:
+    """Two-pass plan for arbitrary backward fields (host-side).
+
+    ``map_ys``/``map_xs``: (N, H_out, W_out) float — for each output pixel,
+    the source coordinate to sample (cv2.remap convention; this is exactly
+    what grid_rendering's generate_remap_params emits per sample).
+    Requires ``map_x`` monotonically increasing along each output row
+    (true for camera-model and mild MLS warps).
+    """
+    pos_v, map_xs_fixed, row_monotone = dense_warp_positions(
+        map_ys, map_xs, src_shape
+    )
+    assert row_monotone.all(), (
+        'map_x must be (near-)monotone along rows for the two-pass '
+        'decomposition'
+    )
+    return plan_dense_warp_from_positions(
+        pos_v, map_xs_fixed, src_shape, taps_max
+    )
+
+
+
+# ---------------------------------------------------------------------------
 # Device half.
 # ---------------------------------------------------------------------------
 
 
-def apply_line_resample(x_slab, plan: LineResamplePlan,
-                        statics: LineResampleStatics,
-                        border_value: float = 0.0):
-    """Resample (N, L, C, M_in) float32 along the last axis ->
-    (N, L, C, out_len).  ``plan`` holds tensors on ``x_slab``'s device
-    (convert.line_resample_plan)."""
+def _shift_lines(x_slab, starts, statics, border_value: float):
+    """Each line's window of ``statics.m_shift`` lanes at its start:
+    (N, L, C, M_in) -> (N, L, C, m_shift).  ``statics`` is a
+    LineResampleStatics or a DenseLineStatics.
+
+    Same static route as the reference: the borderless 2048-lane window
+    kernel when the shifted span fits it, else pad and the roll kernel.
+    (There the second route calls ``row_shift_auto``, which is ``row_shift``
+    plus the TPU's chunking of the starts in scalar memory; that chunking
+    has no counterpart on a GPU.)"""
     n, l, c, m_in = x_slab.shape
     x_slab = x_slab.contiguous()
-
-    # Same static route as the reference: the borderless 2048-lane window
-    # kernel when the shifted span fits it, else the padded roll kernel.
     rel_min = -statics.pad_lo
     rel_max = statics.m_padded - ROLL_WINDOW - statics.pad_lo
     window_ok = (
@@ -295,21 +532,30 @@ def apply_line_resample(x_slab, plan: LineResamplePlan,
         and rel_max <= WINDOW - statics.m_shift
     )
     if window_ok:
-        shifted = row_shift_window_slab(
-            x_slab, (plan.starts - statics.pad_lo).to(torch.int32).contiguous(),
+        return row_shift_window_slab(
+            x_slab, (starts - statics.pad_lo).to(torch.int32).contiguous(),
             statics.m_shift, border_value=border_value,
-        )                                                 # (N, L, C, m_shift)
-    else:
-        starts = plan.starts[:, :, None].expand(n, l, c).reshape(n, l * c)
-        x_p = F.pad(
-            x_slab,
-            (statics.pad_lo, statics.m_padded - m_in - statics.pad_lo),
-            value=border_value,
         )
-        shifted = row_shift(
-            x_p.reshape(n, l * c, statics.m_padded),
-            starts.to(torch.int32).contiguous(), statics.m_shift,
-        ).reshape(n, l, c, statics.m_shift)
+    starts = starts[:, :, None].expand(n, l, c).reshape(n, l * c)
+    x_p = F.pad(
+        x_slab,
+        (statics.pad_lo, statics.m_padded - m_in - statics.pad_lo),
+        value=border_value,
+    )
+    return row_shift(
+        x_p.reshape(n, l * c, statics.m_padded),
+        starts.to(torch.int32).contiguous(), statics.m_shift,
+    ).reshape(n, l, c, statics.m_shift)
+
+
+def apply_line_resample(x_slab, plan: LineResamplePlan,
+                        statics: LineResampleStatics,
+                        border_value: float = 0.0):
+    """Resample (N, L, C, M_in) float32 along the last axis ->
+    (N, L, C, out_len).  ``plan`` holds tensors on ``x_slab``'s device
+    (convert.line_resample_plan)."""
+    n, l, c, _ = x_slab.shape
+    shifted = _shift_lines(x_slab, plan.starts, statics, border_value)
 
     # 3-tap gather at i0 + {0, 1, 2} and the hat blend (the reference's
     # one-hot einsum + weighted sum, same summation order).
@@ -327,9 +573,9 @@ def apply_line_resample(x_slab, plan: LineResamplePlan,
     return a0 * w0 + a1 * w1 + a2 * w2                      # (N, L, C, J)
 
 
-def apply_affine_warp(images, plan: AffineWarpPlan, statics: AffineWarpStatics,
-                      border_value: float = 0.0):
-    """Warp (N, H, W, C) float32/uint8 by the planned decomposition."""
+def _two_pass(images, resample, plan, statics, border_value: float):
+    """Warp (N, H, W, C) float32/uint8 by ``resample`` along the source
+    rows (pass V), then along the rows of the result (pass H)."""
     had_c = images.dim() == 4
     if not had_c:
         images = images[..., None]
@@ -338,15 +584,31 @@ def apply_affine_warp(images, plan: AffineWarpPlan, statics: AffineWarpStatics,
 
     # Pass V: lines = input columns; resample along rows (slab layout).
     x_v = x.permute(0, 2, 3, 1)                            # (N, W_in, C, H_in)
-    tmp = apply_line_resample(x_v, plan.pass_v, statics.statics_v,
-                              border_value)
+    tmp = resample(x_v, plan.pass_v, statics.statics_v, border_value)
     # (N, W_in, C, H_out) -> pass H layout: lines = output rows.
     x_h = tmp.permute(0, 3, 2, 1)                          # (N, H_out, C, W_in)
-    out = apply_line_resample(x_h, plan.pass_h, statics.statics_h,
-                              border_value)
+    out = resample(x_h, plan.pass_h, statics.statics_h, border_value)
     out = out.permute(0, 1, 3, 2)                          # (N, H_out, W_out, C)
     out = to_image_dtype(out, orig_dtype)
     return out if had_c else out[..., 0]
+
+
+def apply_affine_warp(images, plan: AffineWarpPlan, statics: AffineWarpStatics,
+                      border_value: float = 0.0):
+    """Warp (N, H, W, C) float32/uint8 by the planned decomposition."""
+    return _two_pass(images, apply_line_resample, plan, statics, border_value)
+
+
+def warp_affine_batch_mxu(images, trans_mats: np.ndarray,
+                          dst_shape: Optional[Tuple[int, int]] = None,
+                          border_value: float = 0.0):
+    """Convenience wrapper: plan on the host, apply on ``images``' device."""
+    src_shape = (images.shape[1], images.shape[2])
+    plan, statics = plan_affine_warp(trans_mats, src_shape, dst_shape)
+    return apply_affine_warp(
+        images, convert.affine_warp_plan(plan, images.device), statics,
+        border_value=border_value,
+    )
 
 
 def rot90_samples(images, quadrants):
@@ -380,3 +642,45 @@ def apply_affine_warp_quad(images, quadrants, plan: AffineWarpPlan,
     images = rot90_samples(images, quadrants)
     out = apply_affine_warp(images, plan, statics, border_value=border_value)
     return out if had_c else out[..., 0]
+
+
+def apply_dense_line_resample(x, plan: DenseLinePlan,
+                              statics: DenseLineStatics,
+                              border_value: float = 0.0):
+    """Resample (N, L, C, M_in) float32 -> (N, L, C, out_len) at planned
+    positions.  ``plan`` holds tensors on ``x``'s device
+    (convert.dense_line_plan)."""
+    n, l, c, _ = x.shape
+    shifted = _shift_lines(x, plan.starts, statics, border_value)
+
+    jn = statics.out_len
+    i0 = plan.i0.to(torch.int64)[:, None, None, :].expand(n, l, c, jn)
+    u = plan.u[:, :, None]                                 # (N, L, 1, J)
+
+    # Tap by tap, t ascending in float32: the reference's accumulation
+    # order (there each tap is a one-hot matmul; the gather at i0 + t reads
+    # the same element).
+    out = torch.zeros((n, l, c, jn), dtype=torch.float32, device=x.device)
+    for t in range(statics.taps):
+        a_t = torch.gather(shifted[..., t:], 3, i0)
+        w_t = torch.clamp(1.0 - torch.abs(u - t), min=0.0)
+        out = out + a_t * w_t
+    return out
+
+
+def apply_dense_warp(images, plan: DenseWarpPlan, statics: DenseWarpStatics,
+                     border_value: float = 0.0):
+    """Warp (N, H, W, C) float32/uint8 by the planned dense field."""
+    return _two_pass(images, apply_dense_line_resample, plan, statics,
+                     border_value)
+
+
+def warp_dense_batch_mxu(images, map_ys: np.ndarray, map_xs: np.ndarray,
+                         border_value: float = 0.0, taps_max: int = 24):
+    """Convenience wrapper: plan on the host, apply on ``images``' device."""
+    src_shape = (images.shape[1], images.shape[2])
+    plan, statics = plan_dense_warp(map_ys, map_xs, src_shape, taps_max)
+    return apply_dense_warp(
+        images, convert.dense_warp_plan(plan, images.device), statics,
+        border_value=border_value,
+    )
