@@ -75,10 +75,23 @@ Phases, one line each (plus detail lines):
      camera plans, against mode='gather' and against its own CPU run.
      Each of the three runs with the launch counters zeroed just before
      and read just after: K1 and K3 must have launched in training, K1 or
-     K2 in the chain and in the dense warp.
+     K2 in the chain and in the dense warp;
+  7. multi-device: vkit_tpu_torch.entry.dryrun_multichip on this card in
+     one NCCL process group of world size 1 (a FileStore rendezvous): the
+     (1, 1, 1) dp x sp x tp mesh, one sharded train step of the default
+     bfloat16 net, 8 composed 640x640 pages a dp rank, the dp-sharded
+     one-program chain with the labels on its warp plans, a train step on
+     them, and the sharded checkpoint round trip.  Launch counters are
+     zeroed just before and read just after: K1 must have launched.  It
+     logs the dry run's report line, the seconds of its generation and of
+     the train step on the generated batch, and the bytes that step handed
+     to NCCL all-reduces (gradients and loss counts over dp x sp).  The
+     counted run records (copies) the arguments of each row-shift launch;
+     after it, each launch is held bit for bit against its plain version,
+     with its times and bound on a line of its own.
 Then one JSON line of per-kernel results, the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Any failure raises (exit code != 0).
-`launches` in the JSON line sums the counted runs of phases 4 and 6
+`launches` in the JSON line sums the counted runs of phases 4, 6 and 7
 (`launches_by_path` has each), so K4 reads 0; the launches of one synth-640
 batch are on phase 3's capture line.
 Parity with the CPU assumes TF32 off for matmuls and cuDNN, as set here.
@@ -90,7 +103,6 @@ import importlib.util
 import json
 import pkgutil
 import statistics
-import string
 import subprocess
 import sys
 import time
@@ -100,9 +112,6 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 ASSETS = REPO / 'build' / 'chip_smoke_assets'
-ASCII_CHARS = sorted(set(
-    string.ascii_letters + string.digits + string.punctuation
-))
 KERNEL_SOURCES = {
     'row_shift_window_slab': ('vkit_tpu_torch/ops/csrc/row_shift.cu',
                               'vkit_tpu/ops/pallas_kernels.py:157'),
@@ -182,122 +191,6 @@ def import_the_port() -> int:
                      'vkit_tpu'))
     check(not loaded, f'importing the port loaded {loaded[:8]}')
     return len(names)
-
-
-def find_font() -> Path:
-    """A DejaVu Sans TTF (matplotlib's data or /usr/share/fonts); without
-    one, the FreeType font Pillow bundles, written out as a file."""
-    candidates = []
-    spec = importlib.util.find_spec('matplotlib')
-    if spec is not None and spec.origin:
-        candidates += sorted(
-            (Path(spec.origin).parent / 'mpl-data' / 'fonts' / 'ttf')
-            .glob('DejaVuSans*.ttf')
-        )
-    candidates += sorted(Path('/usr/share/fonts').rglob('DejaVuSans*.ttf'))
-    sans = sorted(
-        (p for p in candidates
-         if 'Mono' not in p.name and 'Display' not in p.name),
-        key=lambda p: (p.name != 'DejaVuSans.ttf', str(p)),
-    )
-    if sans:
-        return sans[0]
-    from PIL import ImageFont
-
-    font = ImageFont.load_default(size=32)
-    data = getattr(font, 'font_bytes', None)
-    check(bool(data), 'no TTF font found and Pillow bundles none')
-    family = '-'.join(font.getname())
-    path = ASSETS / 'fonts' / f'{family}.ttf'
-    path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_bytes(data)
-    return path
-
-
-def build_assets(font_file: Path) -> dict:
-    """Lexicon, font collection, corpus, background and symbol images for
-    the page planner (the same set tests/pipeline/fixtures.py builds)."""
-    import shutil
-
-    from PIL import Image
-
-    root = ASSETS
-    root.mkdir(parents=True, exist_ok=True)
-    lexicon_json = root / 'lexicon.json'
-    lexicon_json.write_text(json.dumps([
-        {'char': char, 'aliases': [], 'tags': ['ascii']}
-        for char in ASCII_CHARS
-    ]))
-    font_fd = root / 'font_collection' / 'font'
-    meta_fd = root / 'font_collection' / 'font_meta'
-    font_fd.mkdir(parents=True, exist_ok=True)
-    meta_fd.mkdir(parents=True, exist_ok=True)
-    shutil.copyfile(font_file, font_fd / font_file.name)
-    (meta_fd / 'font.json').write_text(json.dumps({
-        'name': font_file.stem,
-        'mode': 'vttc',
-        'char_to_tags': {char: ['ascii'] for char in ASCII_CHARS},
-        'font_files': [font_file.name],
-        'font_glyph_info_collection': {'font_glyph_infos': [{
-            'tags': ['ascii'],
-            'ascent_plus_pad_up_min_to_font_size_ratio': 0.8,
-            'height_min_to_font_size_ratio': 1.0,
-            'width_min_to_font_size_ratio': 0.6,
-        }]},
-    }))
-    corpus_txt = root / 'corpus.txt'
-    corpus_txt.write_text('\n'.join([
-        'the quick brown fox jumps over the lazy dog 0123456789',
-        'pack my box with five dozen liquor jugs',
-        'sphinx of black quartz judge my vow',
-        'how vexingly quick daft zebras jump',
-    ] * 25))
-    rng = np.random.default_rng(0)
-    bg_fd = root / 'bg_images'
-    bg_fd.mkdir(exist_ok=True)
-    for idx in range(2):
-        small = rng.integers(140, 235, (8, 8, 3), dtype=np.uint8)
-        mat = np.kron(small, np.ones((40, 40, 1), dtype=np.uint8))
-        Image.fromarray(mat).save(bg_fd / f'bg_{idx}.png')
-    symbol_fd = root / 'symbol_images'
-    symbol_fd.mkdir(exist_ok=True)
-    for idx in range(2):
-        mat = np.zeros((32, 32), dtype=np.uint8)
-        mat[4:28, 14:18] = 255
-        mat[14:18, 4:28] = 255
-        Image.fromarray(mat.T.copy() if idx else mat).save(
-            symbol_fd / f'symbol_{idx}.png'
-        )
-    return {
-        'lexicon_json': str(lexicon_json),
-        'font_collection_folder': str(root / 'font_collection'),
-        'corpus_txt': str(corpus_txt),
-        'bg_image_folder': str(bg_fd),
-        'symbol_image_folder': str(symbol_fd),
-    }
-
-
-def make_planner(assets: dict, side: int):
-    from vkit_tpu_torch.host import SynthPlanner, SynthPlannerConfig
-
-    selector = [{'type': 'selector', 'weight': 1,
-                 'config': {'image_folders': [assets['bg_image_folder']]}}]
-    return SynthPlanner(SynthPlannerConfig(
-        lexicon_collection_json=assets['lexicon_json'],
-        font_collection_folder=assets['font_collection_folder'],
-        char_sampler_configs=[{
-            'type': 'corpus', 'weight': 1,
-            'config': {'txt_files': [assets['corpus_txt']]},
-        }],
-        page_height=side, page_width=side,
-        # Full page content: every page_assembler layer.
-        background_image_configs=selector,
-        image_configs=selector,
-        symbol_image_folders=[assets['symbol_image_folder']],
-        enable_barcodes=True,
-        enable_seal_impressions=True,
-        enable_text_line_bounding_boxes=True,
-    ))
 
 
 # ---------------------------------------------------------------------------
@@ -390,7 +283,8 @@ def record_row_shifts(run):
     """Calls ``run()`` with recorders around the K1 and K2 wrappers that
     ops/warp_mxu.py calls (the affine and the dense two-pass reach them
     there).  Returns [(kernel, args, kwargs)], one entry per launch in call
-    order, copied.  Untimed, and outside any counted run."""
+    order, copied.  The copies launch no kernel, so a counted run may be
+    recorded; they add a copy of each launch's inputs to its time."""
     from vkit_tpu_torch.ops import warp_mxu
 
     names = ('row_shift_window_slab', 'row_shift')
@@ -768,6 +662,17 @@ def kernel_phase(device, captured):
         log(f'    banded_line_resample taps={rung}: max_abs_err {err}')
     torch.cuda.empty_cache()
     return results
+
+
+def log_kernel(tag: str, name: str, res, card: str):
+    log(f'[{tag}] {name} at {res["shape"]}: max_abs_err '
+        f'{res["max_abs_err"]} bit_exact {res["bit_exact"]} ms '
+        f'{res["ms"]:.4f} plain_ms {res["plain_ms"]:.4f} library_ms '
+        + (f'{res["library_ms"]:.4f}' if res['library_ms'] is not None
+           else f'none ({K3_NO_LIBRARY})')
+        + f' | bound {res["bound_ms"]:.4f} ms by {res["bound_by"]} '
+        f'({res["bytes"] / 1e6:.1f} MB, {res["operations"]:.3g} ops), '
+        f'share {res["share"]:.3f} | {card}')
 
 
 def path_kernel_phase(device, chain, stack, plans):
@@ -1834,6 +1739,35 @@ def dense_path(device, stack_np, stack, plans, drawn):
             'card_vs_cpu': host_err}
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the multi-device path.
+# ---------------------------------------------------------------------------
+
+
+def multidevice_path(side: int = 640, pages_per_rank: int = 8):
+    """entry.dryrun_multichip on this card, in one NCCL process group of
+    world size 1 that meets through a FileStore; returns its report."""
+    import torch.distributed as dist
+
+    from vkit_tpu_torch.entry import dryrun_multichip
+    from vkit_tpu_torch.parallel import initialize_distributed
+
+    store = REPO / 'build' / 'chip_smoke_store'
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    initialize_distributed(f'file://{store}', 1, 0, 'cuda')
+    try:
+        check(dist.get_backend() == 'nccl', f'backend {dist.get_backend()}')
+        report = dryrun_multichip(1, device='cuda', page_side=side,
+                                  pages_per_rank=pages_per_rank)
+    finally:
+        dist.destroy_process_group()
+    check(report['mesh'] == {'dp': 1, 'sp': 1, 'tp': 1}
+          and report['label_px'] > 0 and report['sharded_ckpt'] == 'ok',
+          f'dry run report {report}')
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -1849,6 +1783,11 @@ def main() -> int:
     modules = import_the_port()
     from vkit_tpu_torch.host import native_geometry_loaded
     from vkit_tpu_torch.ops import kernels as K
+    from vkit_tpu_torch.synth.assets import (
+        build_assets,
+        find_font,
+        make_planner,
+    )
 
     device = torch.device('cuda', 0)
     # float32 products (the node upsamples) in full precision.
@@ -1858,7 +1797,7 @@ def main() -> int:
 
     # 1. Environment.
     libs = probe_host_libraries()
-    font = find_font()
+    font = find_font(ASSETS)
     log(f'[1 environment] torch {torch.__version__} cuda {torch.version.cuda} '
         f'| {card} | host libs {libs} | font {font.name} '
         f'| native geometry {native_geometry_loaded()} '
@@ -1874,7 +1813,7 @@ def main() -> int:
 
     # 3. Kernels against their plain versions, K1 and K3 at the arguments
     # of their first launch in a synth-640 batch.
-    assets = build_assets(font)
+    assets = build_assets(ASSETS, font)
     planner = make_planner(assets, 640)
     captured, per_batch = capture_main_path_args(device, planner)
     log(f'[3 capture] launches in one synth-640 batch (8 pages, level 5, '
@@ -1892,14 +1831,7 @@ def main() -> int:
     del chain_images, chain, dense_in
     torch.cuda.empty_cache()
     for name, res in shapes.items():
-        log(f'[3 kernel] {name} at {res["shape"]}: max_abs_err '
-            f'{res["max_abs_err"]} bit_exact {res["bit_exact"]} ms '
-            f'{res["ms"]:.4f} plain_ms {res["plain_ms"]:.4f} library_ms '
-            + (f'{res["library_ms"]:.4f}' if res['library_ms'] is not None
-               else f'none ({K3_NO_LIBRARY})')
-            + f' | bound {res["bound_ms"]:.4f} ms by {res["bound_by"]} '
-            f'({res["bytes"] / 1e6:.1f} MB, {res["operations"]:.3g} ops), '
-            f'share {res["share"]:.3f} | {card}')
+        log_kernel('3 kernel', name, res, card)
 
     if '--kernels-only' in sys.argv[1:]:
         return 0
@@ -2016,8 +1948,41 @@ def main() -> int:
         f'active masks: mean {dense["mean_vs_gather"]} LSB (4 px in), max '
         f'{dense["max_vs_gather"]} LSB (16 px in) | card vs CPU '
         f'{dense["card_vs_cpu"]} | {card}')
+    torch.cuda.empty_cache()
+
+    # 7. The multi-device path, each row-shift launch's arguments recorded
+    # in the counted run and its kernel held to its plain version after.
+    K.reset_launch_counts()
+    reports = []
+    multi_calls = record_row_shifts(
+        lambda: reports.append(multidevice_path()))
+    multi_launches = dict(K.LAUNCHES)
+    multi = reports[0]
+    check(multi_launches['row_shift_window_slab'] > 0,
+          f'K1 never launched on the multi-device path: {multi_launches}')
+    check(len(multi_calls) == multi_launches['row_shift_window_slab']
+          + multi_launches['row_shift'],
+          f'{len(multi_calls)} row-shift launches recorded, '
+          f'{multi_launches} counted')
+    for index, (name, args, kwargs) in enumerate(multi_calls):
+        label = f'{name}/multidevice launch {index + 1} of {len(multi_calls)}'
+        log_kernel('7 kernel', label,
+                   compare_row_shift(label, name, args, kwargs), card)
+    del multi_calls
+    torch.cuda.empty_cache()
+    log(f'[7 multi-device] dryrun_multichip(1, device=\'cuda\'), NCCL, '
+        f'mesh {multi["mesh"]}: first sharded step (batch '
+        f'{multi["batch"]}, default net bfloat16) {multi["step_seconds"]} s, '
+        f'loss {multi["loss"]}; 8 composed 640x640 pages -> chain + label '
+        f'warp + bridge {multi["gen_seconds"]} s; train step on them '
+        f'{multi["gen_train_step_seconds"]} s (first at this shape), loss '
+        f'{multi["gen_train_loss"]}, label_px {multi["label_px"]}; bytes to '
+        f'collectives in that step {multi["gen_train_step_traffic"]}; '
+        f'sharded checkpoint {multi["sharded_ckpt"]} '
+        f'| launches {multi_launches} | {card}')
     by_path = {'serving': launches, 'training': train_launches,
-               'chain': chain_launches, 'dense': dense['launches']}
+               'chain': chain_launches, 'dense': dense['launches'],
+               'multidevice': multi_launches}
 
     print(json.dumps({'kernels': [
         {

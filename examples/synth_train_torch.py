@@ -25,7 +25,6 @@ sys.path.insert(0, str(REPO))
 
 import numpy as np
 
-import chip_smoke
 from vkit_tpu_torch.models import (
     CheckpointManager,
     create_model,
@@ -36,6 +35,7 @@ from vkit_tpu_torch.models import (
     synth_to_train_batch,
 )
 from vkit_tpu_torch.synth import CropConfig, synthesize_stream
+from vkit_tpu_torch.synth.assets import build_assets, find_font, make_planner
 
 
 def main():
@@ -44,8 +44,8 @@ def main():
     parser.add_argument('--batches', type=int, default=4)
     args = parser.parse_args()
 
-    planner = chip_smoke.make_planner(
-        chip_smoke.build_assets(chip_smoke.find_font()), 256)
+    root = REPO / 'build' / 'example_assets'
+    planner = make_planner(build_assets(root, find_font(root)), 256)
     model = create_model(stage_features=(32, 64), fpn_features=32)
     optimizer = create_optimizer(1e-3)
     state = None

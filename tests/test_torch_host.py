@@ -242,7 +242,8 @@ def test_importing_the_port_loads_no_jax_and_no_vkit_tpu():
         'vkit_tpu_torch.models', 'vkit_tpu_torch.models.checkpoint',
         'vkit_tpu_torch.models.data', 'vkit_tpu_torch.models.text_detection',
         'vkit_tpu_torch.models.train', 'vkit_tpu_torch.parallel',
-        'vkit_tpu_torch.parallel.batch', 'vkit_tpu_torch.parallel.prefetch',
+        'vkit_tpu_torch.parallel.batch', 'vkit_tpu_torch.parallel.layers',
+        'vkit_tpu_torch.parallel.mesh', 'vkit_tpu_torch.parallel.prefetch',
     ]
 
 
@@ -405,7 +406,8 @@ JAX_NAMES = frozenset({'jax', 'jnp', 'lax', 'pl', 'pltpu'})
 
 # Shared definitions that use no jax name themselves yet differ on purpose,
 # by module: device code that calls the port's PyTorch ops or takes a
-# ``device``, the port's own native loader, and trimmed package exports.
+# ``device``, the port's own native loader, trimmed package exports, and
+# the mesh's shardings (the port's own Sharding in place of jax's).
 PORTED = {
     'engine/font/atlas.py': {'pack_placements'},
     'mechanism/batched.py': {
@@ -425,6 +427,7 @@ PORTED = {
     'native/__init__.py': {'_build', 'load_library'},
     'ops/common.py': {'expand_chw'},
     'parallel/__init__.py': {'=__all__'},
+    'parallel/mesh.py': {'batch_sharding', 'data_sharding', 'replicated'},
     'parallel/prefetch.py': {'DevicePrefetcher.__init__', 'prefetch_map'},
     'synth/__init__.py': {'=__all__'},
     'synth/device.py': {'_composite_overlays', 'synthesize_stream'},

@@ -43,10 +43,11 @@ def _smooth_batch(seed, n, h, w):
 
 
 def test_exports():
-    assert set(TP.__all__) == {
-        'SynthesisParams', 'sample_synthesis_params', 'synthesize_batch',
-        'transform_label_points', 'DevicePrefetcher', 'prefetch_map'}
-    assert set(TP.__all__) <= set(JP.__all__)
+    """The reference's names, and the mesh's own types and its put /
+    gather (the dry run's make_array_from_callback, and its inverse)."""
+    assert set(JP.__all__) <= set(TP.__all__)
+    assert set(TP.__all__) - set(JP.__all__) == {'Mesh', 'Sharding', 'put',
+                                                 'gather'}
 
 
 @pytest.mark.parametrize('level', [3, 5, 10])
@@ -268,5 +269,6 @@ def test_prefetcher_needs_a_device_that_exists():
         pytest.skip('a card is present: the default device exists')
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         TP.DevicePrefetcher(iter([]))
-    with pytest.raises(TypeError):
-        TP.DevicePrefetcher(iter([]), sharding=None, device='cpu')
+    # A sharded prefetch lands on its mesh's device, the card by default.
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        TP.make_mesh()

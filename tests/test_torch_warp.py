@@ -420,10 +420,9 @@ def test_kernel_counts_untouched_on_cpu(page_images):
     assert sum(K.LAUNCHES.values()) == 0
 
 
-def test_dense_mode_not_ported(page_images):
-    """The name dates from when ``mode='dense'`` raised
-    NotImplementedError: it runs now (tests/test_torch_dense_warp.py holds
-    it to vkit_tpu), and only an unknown mode is refused."""
+def test_dense_mode_runs_and_unknown_mode_refused(page_images):
+    """``mode='dense'`` runs (tests/test_torch_dense_warp.py holds it to
+    vkit_tpu), and only an unknown mode is refused."""
     plans = [D.rotate.plan({'angle': 5}, page_images.shape[1:3],
                            np.random.default_rng(0))] * 3
     got, shapes, _ = TB.batched_plan_warp(

@@ -5,6 +5,12 @@ atomic, versioned save / restore of the TrainState plus the data-stream
 position, so a preempted run resumes exactly.  The state is one
 ``torch.save`` file of tensors moved to the CPU, read back with
 ``weights_only=True`` onto the example state's device.
+
+A state sharded over a mesh (``sharding=``, the parameters' placement)
+round-trips as the reference's npz path does: ``save`` gathers every leaf
+to its global value and rank 0 writes it in the unsharded layout, so a
+single process reads it back; ``restore`` gives each rank its slices.  The
+ranks share the directory.
 """
 import json
 import os
@@ -13,9 +19,11 @@ from pathlib import Path
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..convert import nested_to_device
-from .train import TrainState
+from ..parallel.mesh import gather, put
+from .train import TrainState, train_state_sharding
 
 
 class CheckpointManager:
@@ -41,7 +49,24 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def save(self, state: TrainState, metadata: Optional[dict] = None):
+    def save(self, state: TrainState, metadata: Optional[dict] = None,
+             sharding=None):
+        """Write ``state`` as step ``state.step``.  With ``sharding`` (the
+        parameters' {name: Sharding}) every rank of the mesh calls this:
+        the leaves are gathered, rank 0 writes, and the others wait until
+        the checkpoint is in place."""
+        if sharding is None:
+            self._write(state, metadata)
+            return
+        state = gather(state, train_state_sharding(state, sharding))
+        if not dist.is_initialized():
+            self._write(state, metadata)
+            return
+        if dist.get_rank() == 0:
+            self._write(state, metadata)
+        dist.barrier()
+
+    def _write(self, state: TrainState, metadata: Optional[dict]):
         # Stage into step_N.tmp and os.replace() once complete, so a crash
         # mid-save can never surface a half-written checkpoint.
         step = int(state.step)
@@ -62,9 +87,10 @@ class CheckpointManager:
         self._gc()
 
     def restore(self, example_state: TrainState,
-                step: Optional[int] = None) -> TrainState:
+                step: Optional[int] = None, sharding=None) -> TrainState:
         """The saved state on the device of ``example_state``, whose
-        parameter names it must have."""
+        parameter names it must have; with ``sharding`` (the parameters'
+        {name: Sharding}) this rank's slices of it."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -85,11 +111,14 @@ class CheckpointManager:
                   for name, value in entry.items()}
             for key, entry in opt_state.get('state', {}).items()
         }
-        return TrainState(
+        state = TrainState(
             params=nested_to_device(loaded['params'], device),
             opt_state=opt_state,
             step=loaded['step'].to(device),
         )
+        if sharding is None:
+            return state
+        return put(state, train_state_sharding(state, sharding))
 
     def read_metadata(self, step: Optional[int] = None) -> Any:
         if step is None:

@@ -17,6 +17,12 @@ Where a PyTorch default differs from the flax one, the flax one is kept:
     conv's output has the compute dtype.
 The convolutions are library calls (cuDNN on a card), as they are XLA
 convolutions in the reference: no hand-written kernel is replaced here.
+
+``TextDetectionNet.shard`` lays one net out over a dp x sp x tp mesh
+(parallel/mesh.py): each rank then holds its rows of the activations and
+its slice of the wide convs' output channels, and the convs and
+GroupNorms run the collectives of parallel/layers.py.  Unsharded, the
+same modules run as above.
 """
 import math
 from typing import Sequence, Tuple
@@ -26,6 +32,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.common import scalar
+from ..parallel.layers import (
+    all_reduce_sum,
+    copy_to_tp,
+    exchange_halo,
+    gather_channels,
+)
+from ..parallel.mesh import MODEL_AXIS, SPATIAL_AXIS, local_slice
 
 GROUPS = 32
 GROUP_NORM_EPS = 1e-6
@@ -41,9 +54,18 @@ def _same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def _rows_split(mesh) -> bool:
+    return mesh is not None and mesh.size(SPATIAL_AXIS) > 1
+
+
 class Conv(nn.Module):
     """flax ``nn.Conv`` with 'SAME' padding on an NCHW tensor: float32
-    parameters, cast to the input's dtype at each call."""
+    parameters, cast to the input's dtype at each call.
+
+    On a mesh (``mesh`` set by ``TextDetectionNet.shard``) the rows of the
+    'SAME' padding come from the neighbouring sp ranks, and a conv whose
+    output channels are split over tp (``tp_split``) computes its slice and
+    all-gathers the channels; its bias, replicated, is added after."""
 
     def __init__(self, in_features: int, features: int, kernel: int,
                  stride: int = 1, use_bias: bool = True):
@@ -53,6 +75,8 @@ class Conv(nn.Module):
         self.weight = nn.Parameter(
             torch.empty(features, in_features, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.mesh = None
+        self.tp_split = False
 
     def reset_parameters(self, generator: torch.Generator):
         """lecun_normal kernel (truncated normal, variance 1 / fan_in), zero
@@ -66,27 +90,54 @@ class Conv(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x):
-        pad_h = _same_padding(x.shape[2], self.kernel, self.stride)
+        if _rows_split(self.mesh):
+            x = exchange_halo(x, self.kernel, self.stride, self.mesh)
+            pad_h = (0, 0)
+        else:
+            pad_h = _same_padding(x.shape[2], self.kernel, self.stride)
         pad_w = _same_padding(x.shape[3], self.kernel, self.stride)
         if any(pad_h + pad_w):
             x = F.pad(x, pad_w + pad_h)
+        weight = self.weight.to(x.dtype)
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.weight.to(x.dtype), bias, stride=self.stride)
+        if not self.tp_split:
+            return F.conv2d(x, weight, bias, stride=self.stride)
+        x = F.conv2d(copy_to_tp(x, self.mesh), weight, stride=self.stride)
+        x = gather_channels(x, self.mesh)
+        return x if bias is None else x + bias[:, None, None]
 
 
 class GroupNorm(nn.Module):
     """flax ``nn.GroupNorm``: statistics and affine in float32, the result
-    in the input's dtype."""
+    in the input's dtype.
+
+    With the rows split over sp the statistics come from sums over this
+    rank's rows all-reduced over sp, and the variance is flax's
+    ``E[x^2] - E[x]^2``."""
 
     def __init__(self, features: int):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
+        self.mesh = None
 
     def forward(self, x):
-        y = F.group_norm(x.to(torch.float32), GROUPS, self.weight, self.bias,
-                         GROUP_NORM_EPS)
-        return y.to(x.dtype)
+        if not _rows_split(self.mesh):
+            y = F.group_norm(x.to(torch.float32), GROUPS, self.weight,
+                             self.bias, GROUP_NORM_EPS)
+            return y.to(x.dtype)
+        n, c, h, w = x.shape
+        xf = x.to(torch.float32).permute(0, 2, 3, 1).reshape(
+            n, h * w, GROUPS, c // GROUPS)
+        sums = all_reduce_sum(torch.stack([
+            xf.sum(dim=(1, 3)), (xf * xf).sum(dim=(1, 3))]), self.mesh)
+        count = h * w * (c // GROUPS) * self.mesh.size(SPATIAL_AXIS)
+        mean = sums[0] / count
+        var = torch.clamp(sums[1] / count - mean * mean, min=0.0)
+        inv = torch.rsqrt(var + GROUP_NORM_EPS)
+        y = (xf - mean[:, None, :, None]) * inv[:, None, :, None]
+        y = y.reshape(n, h, w, c) * self.weight + self.bias
+        return y.permute(0, 3, 1, 2).to(x.dtype)
 
 
 def _gelu(x):
@@ -140,6 +191,39 @@ class TextDetectionNet(nn.Module):
         self.mask_head = Conv(fpn_features, 1, 1)
         self.height_head = Conv(fpn_features, 1, 1)
         self.gaussian_head = Conv(fpn_features, 1, 1)
+        self.mesh = None
+
+    def shard(self, shardings):
+        """Lay the net out over the mesh of ``shardings`` ({parameter name:
+        Sharding}, as ``parallel.shard_params_for_tp`` gives them): each
+        parameter becomes this rank's slice of it, and the convs and
+        GroupNorms run their collectives from then on.  The net then takes
+        this rank's rows of its dp slice of the images (``batch_sharding``)
+        and returns its rows of the outputs.  Initialise the parameters
+        before (``init_train_state``): drawn on a slice they would differ.
+        """
+        names = dict(self.named_parameters())
+        if shardings.keys() != names.keys():
+            raise ValueError('the shardings name other parameters than the '
+                             'net\'s')
+        for name, sharding in shardings.items():
+            split = [axis for axis in sharding.spec if axis is not None]
+            if split and not (names[name].dim() == 4 and split == [MODEL_AXIS]
+                              and sharding.spec[0] == MODEL_AXIS):
+                raise ValueError(f'{name}: only a conv\'s output channels '
+                                 f'split (over tp), not {sharding.spec}')
+        mesh = next(iter(shardings.values())).mesh
+        self.mesh = mesh
+        for prefix, module in self.named_modules():
+            if isinstance(module, (Conv, GroupNorm)):
+                module.mesh = mesh
+            if isinstance(module, Conv):
+                spec = shardings[f'{prefix}.weight'].spec
+                module.tp_split = spec[:1] == (MODEL_AXIS,)
+        with torch.no_grad():
+            for name, param in names.items():
+                param.data = local_slice(param.data, shardings[name])
+        return self
 
     def reset_parameters(self, generator: torch.Generator):
         """Initial values from ``generator`` in flax's distributions:

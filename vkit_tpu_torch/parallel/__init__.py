@@ -1,14 +1,32 @@
-"""Parallel layer: the one-program distortion chain and the prefetch pump.
+"""Parallel layer: the one-program distortion chain, the prefetch pump,
+and the device mesh with its sharding helpers.
 
-Port of vkit_tpu/parallel: ``batch`` and ``prefetch``.  The reference's
-device mesh (``mesh``) has no counterpart yet; it comes with the
-multi-device work.
+Port of vkit_tpu/parallel: ``batch``, ``prefetch`` and ``mesh``; ``layers``
+holds the collectives that XLA would insert into the reference's sharded
+program.
 """
 from .batch import (
     SynthesisParams,
     sample_synthesis_params,
     synthesize_batch,
     transform_label_points,
+)
+from .mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    SPATIAL_AXIS,
+    Mesh,
+    Sharding,
+    batch_sharding,
+    data_sharding,
+    factor_devices,
+    gather,
+    initialize_distributed,
+    make_mesh,
+    make_multihost_mesh,
+    put,
+    replicated,
+    shard_params_for_tp,
 )
 from .prefetch import DevicePrefetcher, prefetch_map
 
@@ -19,4 +37,19 @@ __all__ = [
     'transform_label_points',
     'DevicePrefetcher',
     'prefetch_map',
+    'DATA_AXIS',
+    'MODEL_AXIS',
+    'SPATIAL_AXIS',
+    'Mesh',
+    'Sharding',
+    'batch_sharding',
+    'data_sharding',
+    'factor_devices',
+    'gather',
+    'initialize_distributed',
+    'make_mesh',
+    'make_multihost_mesh',
+    'put',
+    'replicated',
+    'shard_params_for_tp',
 ]

@@ -5,7 +5,10 @@ arrays or tensors, in any nesting of tuples, lists and dicts), a pump
 thread moves them to the device ahead of consumption, and a bounded queue
 gives backpressure with no serialization.  On a card the move goes through
 pinned host memory on a side stream; a batch is handed over only once its
-copy has finished.
+copy has finished.  With a ``sharding`` (parallel/mesh.py: one Sharding
+for every array of a batch, or a nesting of them shaped like the batch)
+each rank of the mesh receives its slice of every batch, cut on the host,
+on the mesh's device in place of ``device``.
 """
 import queue
 import threading
@@ -14,6 +17,7 @@ from typing import Callable, Iterator, Optional
 import torch
 
 from ..convert import nested_to_device, resolve_device
+from .mesh import local_slice, mesh_of
 
 
 class DevicePrefetcher:
@@ -26,9 +30,12 @@ class DevicePrefetcher:
         batch_iterator: Iterator,
         device='cuda',
         depth: int = 2,
+        sharding=None,
     ):
         self.batch_iterator = batch_iterator
-        self.device = resolve_device(device)
+        self.sharding = sharding
+        self.device = resolve_device(
+            device if sharding is None else mesh_of(sharding).device)
         self.queue: queue.Queue = queue.Queue(maxsize=max(depth, 1))
         self.error: Optional[BaseException] = None
         self.stopped = False
@@ -42,6 +49,8 @@ class DevicePrefetcher:
             for batch in self.batch_iterator:
                 if self.stopped:
                     return
+                if self.sharding is not None:
+                    batch = local_slice(batch, self.sharding)
                 if on_card:
                     with torch.cuda.stream(stream):
                         batch = nested_to_device(batch, self.device, True)
@@ -80,10 +89,12 @@ def prefetch_map(
     num_batches: int,
     device='cuda',
     depth: int = 2,
+    sharding=None,
 ) -> DevicePrefetcher:
     """Prefetch ``produce_batch(idx)`` for idx in range(num_batches)."""
     return DevicePrefetcher(
         (produce_batch(idx) for idx in range(num_batches)),
         device=device,
         depth=depth,
+        sharding=sharding,
     )
