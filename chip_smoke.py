@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (vkit_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--kernels-only]
+    python3 chip_smoke.py [--kernels-only | --pipeline-area SIDE]
 
 ``--kernels-only`` stops after phase 3 (to time the kernels of two
-revisions in turns within one call); it prints no final result line.
+revisions in turns within one call); ``--pipeline-area SIDE`` runs phase 8
+(a) and (c) alone after phase 3 on SIDE x SIDE pages (2522 is the
+pipeline's default page), for at most 15 minutes of attempts.  Neither
+prints a final result line.
 
 Phases, one line each (plus detail lines):
   1. environment: torch / CUDA versions, the card's name and power limit,
@@ -88,10 +91,29 @@ Phases, one line each (plus detail lines):
      to NCCL all-reduces (gradients and loss counts over dp x sp).  The
      counted run records (copies) the arguments of each row-shift launch;
      after it, each launch is held bit for bit against its plain version,
-     with its times and bound on a line of its own.
+     with its times and bound on a line of its own;
+  8. pipeline: the 17-step text-detection pipeline (vkit_tpu_torch.
+     pipeline, as tests/pipeline/fixtures.py configures it: 640x640 pages,
+     synth/assets.py's build_step_configs), step 15 flattening its text
+     regions on the card.  (a) One sample under the port's PipelineRunner
+     from seed 0, the pool's retry: an attempt that step 15's warp planner
+     refuses (an AssertionError of ops/warp_mxu.py, the reference's
+     behaviour) draws again, any other error fails the phase, and 30
+     attempts without a sample fail it.  Launch counters are zeroed just
+     before and read just after: K1 must have launched.  It logs each
+     attempt (seconds, source-tile buckets, launches, error), samples/s,
+     the sample's seconds per step, the regions flattened, the buckets and
+     row-shift shapes, and peak device memory; every row-shift launch is
+     recorded and held bit for bit against its plain version after the
+     run, and the largest of each kernel is timed with its bound.  (b) One
+     sample from PipelinePool(pipeline_factory=..., num_processes=2), its
+     workers spawned and each with step 15 on the card.  (c) Step 15 again
+     from (a)'s input and rng state, on the card and on the CPU: host
+     fields equal, rasters within 1 LSB but for outline pixels, and the
+     card's run under torch.profiler for its device time.
 Then one JSON line of per-kernel results, the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Any failure raises (exit code != 0).
-`launches` in the JSON line sums the counted runs of phases 4, 6 and 7
+`launches` in the JSON line sums the counted runs of phases 4, 6, 7 and 8
 (`launches_by_path` has each), so K4 reads 0; the launches of one synth-640
 batch are on phase 3's capture line.
 Parity with the CPU assumes TF32 off for matmuls and cuDNN, as set here.
@@ -1768,6 +1790,424 @@ def multidevice_path(side: int = 640, pages_per_rank: int = 8):
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the 17-step text-detection pipeline.
+# ---------------------------------------------------------------------------
+
+# Attempts of the pipeline in phase 8 (a) before it gives up with no sample.
+PIPELINE_ATTEMPTS = 30
+# Step 15's planner refuses a region scaled too far (a behaviour of the
+# reference: an AssertionError raised in this file), and the pipeline's
+# runner draws again; an error of any other kind fails the phase.
+PLANNER_FILE = 'vkit_tpu_torch/ops/warp_mxu.py'
+# The pipeline's crops, core 256 and pad 32 (synth/assets.py's configs).
+PIPELINE_CROP = 320
+
+
+class PipelineStop(BaseException):
+    """Ends phase 8 (a) from inside PipelineRunner, whose retry catches
+    every Exception: an error that is not the planner's, or the attempt
+    limit."""
+
+
+def _sample_post_processor():
+    """The post-processor of phase 8's pipeline: the sample's page crops,
+    text-region crops and stacked text-region page, as numpy, so that a
+    spawned worker can send it."""
+    import attr
+
+    from vkit_tpu_torch.pipeline import (
+        PageCroppingStepOutput,
+        PageTextRegionCroppingStepOutput,
+        PageTextRegionStepOutput,
+        PipelinePostProcessor,
+        PipelinePostProcessorFactory,
+    )
+
+    @attr.define
+    class SampleConfig:
+        pass
+
+    @attr.define
+    class SampleInput:
+        page_cropping_step_output: PageCroppingStepOutput
+        page_text_region_step_output: PageTextRegionStepOutput
+        page_text_region_cropping_step_output: PageTextRegionCroppingStepOutput
+
+    class SamplePostProcessor(
+            PipelinePostProcessor[SampleConfig, SampleInput, dict]):
+
+        def generate_output(self, input: SampleInput, rng):
+            regions = input.page_text_region_step_output
+            crops = input.page_text_region_cropping_step_output
+            return {
+                'page_crops': [
+                    page.page_image.mat
+                    for page in input.page_cropping_step_output.cropped_pages
+                ],
+                'region_page': regions.page_image.mat,
+                'region_chars': len(regions.page_char_polygons),
+                'region_crops': [
+                    crop.page_image.mat
+                    for crop in crops.cropped_page_text_regions
+                ],
+            }
+
+    return PipelinePostProcessorFactory(SamplePostProcessor).create()
+
+
+def build_smoke_pipeline(assets: dict, side: int, device: str = 'cuda'):
+    """The 17 steps as tests/pipeline/fixtures.py configures them, on
+    ``side`` x ``side`` pages, step 15 on ``device``.  Module-level, so a
+    spawned pool worker can build it."""
+    import logging
+
+    from vkit_tpu_torch.pipeline import (
+        Pipeline,
+        pipeline_step_collection_factory,
+    )
+    from vkit_tpu_torch.synth.assets import build_step_configs
+
+    # Step 16 warns once per char short of deviate labels and the runner
+    # logs each failed attempt; phase 8 prints its own account.
+    logging.getLogger('vkit_tpu_torch.pipeline').setLevel(logging.CRITICAL)
+    return Pipeline(
+        steps=pipeline_step_collection_factory.create(
+            build_step_configs(assets, side, device)),
+        post_processor=_sample_post_processor(),
+    )
+
+
+def check_sample(sample, what: str):
+    shape = (PIPELINE_CROP, PIPELINE_CROP, 3)
+    crops = sample['page_crops'] + sample['region_crops']
+    check(len(sample['page_crops']) == 2 and sample['region_crops']
+          and sample['region_chars'] > 0,
+          f'{what}: {len(sample["page_crops"])} page crops, '
+          f'{len(sample["region_crops"])} region crops, '
+          f'{sample["region_chars"]} region chars')
+    check(all(c.shape == shape and c.dtype == np.uint8 for c in crops),
+          f'{what}: crop shapes {[c.shape for c in crops]}')
+    page = sample['region_page']
+    check(page.ndim == 3 and page.shape[2] == 3 and page.dtype == np.uint8
+          and page.any(), f'{what}: stacked page {page.shape}')
+
+
+def pipeline_run(assets: dict, side: int, max_seconds=None):
+    """One sample of the 17-step pipeline under the port's PipelineRunner
+    (the pool's retry: a failed attempt draws again from the moved rng),
+    from seed 0, stopping at a sample, PIPELINE_ATTEMPTS attempts or
+    ``max_seconds``.  Launch counters are zeroed just before and read just
+    after; every row-shift launch is recorded (record_row_shifts).  Returns
+    the account of each attempt (step seconds, source-tile buckets,
+    launches, error), the sample, step 15's input and rng state at its
+    entry in the last attempt, the launches and recorded calls."""
+    import copy
+    import traceback
+
+    import torch
+
+    from vkit_tpu_torch.ops import kernels as K
+    from vkit_tpu_torch.ops import region as region_ops
+    from vkit_tpu_torch.pipeline.pool import PipelineRunner
+
+    pipeline = build_smoke_pipeline(assets, side)
+    attempts, entry, samples = [], {}, []
+
+    for step in pipeline.steps:
+        def timed(input, rng, real=step.run, name=type(step).__name__):
+            if name == 'PageTextRegionStep':
+                entry.update(input=input,
+                             rng_state=copy.deepcopy(rng.bit_generator.state))
+            begin = time.perf_counter()
+            try:
+                return real(input, rng)
+            finally:
+                attempts[-1]['steps'][name] = time.perf_counter() - begin
+        step.run = timed
+
+    real_run = pipeline.run
+    begin_all = time.perf_counter()
+
+    def counted_run(rng, state=None):
+        if len(attempts) == PIPELINE_ATTEMPTS or (
+                max_seconds and time.perf_counter() - begin_all > max_seconds):
+            raise PipelineStop(f'no sample in {len(attempts)} attempts, '
+                               f'{time.perf_counter() - begin_all:.1f} s')
+        before = dict(K.LAUNCHES)
+        attempts.append({'steps': {}, 'buckets': [], 'error': None})
+        begin = time.perf_counter()
+        try:
+            return real_run(rng, state)
+        except Exception as error:
+            where = traceback.extract_tb(error.__traceback__)[-1]
+            attempts[-1]['error'] = f'{type(error).__name__}: {error}'
+            if not (isinstance(error, AssertionError)
+                    and where.filename.endswith(PLANNER_FILE)):
+                raise PipelineStop(
+                    f'attempt {len(attempts)}: {type(error).__name__} at '
+                    f'{where.filename}:{where.lineno}: {error}') from error
+            raise
+        finally:
+            attempts[-1]['seconds'] = time.perf_counter() - begin
+            attempts[-1]['launches'] = {
+                name: K.LAUNCHES[name] - before[name] for name in K.LAUNCHES
+                if K.LAUNCHES[name] > before[name]}
+
+    real_flatten = region_ops.batch_flatten_regions
+
+    def flatten(patches, angles, scales, dst_tile, **kwargs):
+        attempts[-1]['buckets'].append((tuple(patches.shape), dst_tile))
+        return real_flatten(patches, angles, scales, dst_tile, **kwargs)
+
+    pipeline.run = counted_run
+    region_ops.batch_flatten_regions = flatten
+    runner = PipelineRunner(pipeline=pipeline)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    begin = time.perf_counter()
+    try:
+        calls = record_row_shifts(
+            lambda: samples.append(runner(0, np.random.default_rng(0),
+                                          None)))
+        stop = None
+    except PipelineStop as error:
+        calls, stop = [], str(error)
+    finally:
+        region_ops.batch_flatten_regions = real_flatten
+    seconds = time.perf_counter() - begin
+    launches = dict(K.LAUNCHES)
+    return {'attempts': attempts, 'sample': samples[0] if samples else None,
+            'stop': stop, 'entry': entry, 'seconds': seconds,
+            'launches': launches, 'calls': calls,
+            'peak_bytes': torch.cuda.max_memory_allocated()}
+
+
+def pipeline_pool_sample(assets: dict, side: int, timeout: int = 300):
+    """One sample from PipelinePool's production form: two spawned workers,
+    each building the pipeline (step 15 on the card) and retrying as the
+    runner does.  Returns the seconds to the first sample."""
+    from functools import partial
+
+    from vkit_tpu_torch.pipeline import PipelinePool
+
+    begin = time.perf_counter()
+    pool = PipelinePool(
+        pipeline_factory=partial(build_smoke_pipeline, assets, side),
+        inventory=1, num_processes=2, timeout=timeout)
+    try:
+        sample = pool.run()
+    finally:
+        pool.cleanup()
+    check_sample(sample, 'pool (spawn)')
+    return time.perf_counter() - begin
+
+
+def _leaves(value, path, out):
+    """Path -> leaf of a step output: arrays and scalars, each object's
+    class name under ``path:type``; public attrs fields and slots."""
+    import enum
+
+    import attr
+
+    if value is None or isinstance(value, (bool, int, float, str,
+                                           np.generic, np.ndarray)):
+        out[path] = value
+    elif isinstance(value, enum.Enum):
+        out[path] = value.name
+    elif isinstance(value, dict):
+        for key in value:
+            _leaves(value[key], f'{path}[{key!r}]', out)
+    elif isinstance(value, (list, tuple)):
+        out[path + ':len'] = len(value)
+        for i, item in enumerate(value):
+            _leaves(item, f'{path}[{i}]', out)
+    else:
+        out[path + ':type'] = type(value).__name__
+        names = ([f.name for f in attr.fields(type(value))]
+                 if attr.has(type(value)) else
+                 [s for c in type(value).__mro__
+                  for s in getattr(c, '__slots__', ())])
+        for name in names:
+            if not name.startswith('_'):
+                _leaves(getattr(value, name), f'{path}.{name}', out)
+    return out
+
+
+def step_outputs_close(card, host):
+    """Step 15's outputs from the card and the CPU: every host field equal,
+    rasters within 1 LSB (images) or 1e-5 (score maps) but for a share of
+    REGION_EDGE_SHARE of their elements (outline pixels where the warped
+    alpha's threshold flips).  Returns (leaves compared, raster elements
+    that differ, the largest share beyond tolerance)."""
+    a, b = _leaves(card, '', {}), _leaves(host, '', {})
+    check(a.keys() == b.keys(), 'step 15 card vs CPU: other fields')
+    differ, worst = 0, 0.0
+    for path, x in a.items():
+        y = b[path]
+        if not isinstance(x, np.ndarray):
+            check(x == y, f'step 15 card vs CPU: {path} {x} != {y}')
+            continue
+        check(x.shape == y.shape and x.dtype == y.dtype,
+              f'step 15 card vs CPU: {path} {x.shape} != {y.shape}')
+        if np.array_equal(x, y):
+            continue
+        kind = a.get(path[:-len('.mat')] + ':type')
+        if kind == 'Image':
+            off = np.abs(x.astype(np.int64) - y.astype(np.int64)) > 1
+        elif kind == 'ScoreMap':
+            off = np.abs(x - y) > 1e-5
+        else:
+            check(kind == 'Mask', f'step 15 card vs CPU: {path} differs')
+            off = x != y
+        worst = max(worst, float(off.mean()))
+        check(off.mean() <= REGION_EDGE_SHARE,
+              f'step 15 card vs CPU: {path}: {off.mean()} beyond 1 LSB')
+        differ += int((x != y).sum())
+    return len(a), differ, worst
+
+
+def step15_card_vs_cpu(assets: dict, side: int, entry: dict):
+    """Step 15 on the card and on the CPU from the input and rng state of
+    a sample's step 15: the outputs close (step_outputs_close) and both
+    rngs left alike.  Also the card's run under torch.profiler, for its
+    device time.  Returns seconds and the comparison."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vkit_tpu_torch.pipeline import pipeline_step_collection_factory
+    from vkit_tpu_torch.synth.assets import build_step_configs
+
+    config = build_step_configs(assets, side)[14]
+    out, seconds, states = {}, {}, {}
+    for device in ('cuda', 'cpu'):
+        step = pipeline_step_collection_factory.create(
+            [dict(config, config={'device': device})])[0]
+        rng = np.random.default_rng()
+        rng.bit_generator.state = entry['rng_state']
+        begin = time.perf_counter()
+        out[device] = step.run(entry['input'], rng)
+        seconds[device] = time.perf_counter() - begin
+        states[device] = rng.bit_generator.state
+        if device == 'cuda':
+            rng.bit_generator.state = entry['rng_state']
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                step.run(entry['input'], rng)
+                torch.cuda.synchronize()
+            # Device activities only (kernels, copies), not the host ops
+            # that issued them nor the profiler's own buffer requests.
+            kernels = {
+                event.key: event.self_device_time_total
+                for event in prof.key_averages()
+                if event.device_type == DeviceType.CUDA
+                and event.self_device_time_total > 0
+                and event.key != 'Activity Buffer Request'
+            }
+    check(states['cuda'] == states['cpu'], 'step 15: the rngs part')
+    leaves, differ, worst = step_outputs_close(out['cuda'], out['cpu'])
+    return {'seconds': seconds, 'leaves': leaves, 'differ': differ,
+            'worst_share': worst,
+            'device_ms': sum(kernels.values()) / 1e3 if kernels else None,
+            'device_kernels': {k: round(v / 1e3, 4) for k, v in
+                               sorted(kernels.items(),
+                                      key=lambda kv: -kv[1])[:6]}}
+
+
+def pipeline_phase(assets: dict, side: int, card: str,
+                   with_pool: bool = True, max_seconds=None):
+    """Phase 8: (a) one sample at ``side`` under PipelineRunner, its
+    attempts, step seconds, buckets and launches, each recorded row-shift
+    launch bit for bit against its plain version and the largest of each
+    kernel timed; (b) one sample from two spawned pool workers; (c) step
+    15 on the card against the CPU.  Returns the launches of (a)."""
+    import torch
+
+    from vkit_tpu_torch.ops import kernels as K
+
+    run = pipeline_run(assets, side, max_seconds=max_seconds)
+    for index, attempt in enumerate(run['attempts']):
+        log(f'    attempt {index + 1}: {attempt["seconds"]:.2f} s, steps '
+            f'run {len(attempt["steps"])}, buckets {attempt["buckets"]}, '
+            f'launches {attempt["launches"]}, '
+            + (f'failed: {attempt["error"]}' if attempt['error']
+               else 'sample'))
+    check(run['stop'] is None and run['sample'] is not None,
+          f'pipeline at {side}: {run["stop"]}')
+    check_sample(run['sample'], f'pipeline at {side}')
+    launches, calls = run['launches'], run['calls']
+    check(launches['row_shift_window_slab'] > 0,
+          f'step 15 launched no K1: {launches}')
+    check(len(calls) == launches['row_shift_window_slab']
+          + launches['row_shift'],
+          f'{len(calls)} row-shift launches recorded, {launches} counted')
+    for index, (name, args, kwargs) in enumerate(calls):
+        x, starts, width = args
+        kernel = getattr(K, name)
+        plain = getattr(K, name + '_plain')
+        extra = ((float(kwargs.get('border_value', 0.0)),)
+                 if name == 'row_shift_window_slab' else ())
+        _, exact = check_exact(
+            f'{name}/pipeline launch {index + 1}',
+            lambda: kernel(x, starts, width, *extra),
+            lambda: plain(x, starts, width, *extra), tol=0.0)
+        check(exact, f'{name}/pipeline launch {index + 1}: not bit-exact')
+    last = run['attempts'][-1]
+    shapes = [f'{name} {tuple(args[0].shape)} -> {args[2]}'
+              for name, args, _ in calls[len(calls) - sum(
+                  last['launches'].values()):]]
+    for name in ('row_shift_window_slab', 'row_shift'):
+        mine = [(args, kwargs) for n, args, kwargs in calls if n == name]
+        if mine:
+            args, kwargs = max(mine, key=lambda c: c[0][0].numel())
+            label = f'{name}/pipeline largest of {len(mine)}'
+            log_kernel('8 kernel', label,
+                       compare_row_shift(label, name, args, kwargs), card)
+    del calls
+    run['calls'] = None
+    torch.cuda.empty_cache()
+    failures = {}
+    for attempt in run['attempts'][:-1]:
+        failures[attempt['error']] = failures.get(attempt['error'], 0) + 1
+    steps = last['steps']
+    step_sum = sum(steps.values())
+    regions = sum(shape[0] for shape, _ in last['buckets'])
+    # The warped stacks come back to the host whole, as the reference's do.
+    back = sum(4 * shape[0] * shape[3] * dst * dst
+               for shape, dst in last['buckets'])
+    log(f'[8 pipeline] 17 steps at {side}x{side} under PipelineRunner from '
+        f'seed 0: {len(run["attempts"])} attempts for 1 sample in '
+        f'{run["seconds"]:.2f} s ({1 / run["seconds"]:.4f} samples/s); '
+        f'failures {failures}; the sample\'s steps (s) '
+        + ', '.join(f'{n} {s:.3f}' for n, s in steps.items())
+        + f' (sum {step_sum:.3f}, step 15 {steps["PageTextRegionStep"] / step_sum:.3f} '
+        f'of it); step 15 flattened {regions} regions in buckets '
+        f'{last["buckets"]} (stack shape, dst tile), {back} bytes of warped '
+        f'tiles copied back, row shifts {shapes}; peak device memory {run["peak_bytes"]} bytes '
+        f'| launches {launches} over all attempts, all bit-exact | {card}')
+    if with_pool:
+        pool_seconds = pipeline_pool_sample(assets, side)
+        log(f'[8 pool] PipelinePool(pipeline_factory=..., num_processes=2), '
+            f'spawned workers with step 15 on the card: first sample in '
+            f'{pool_seconds:.2f} s, crops {PIPELINE_CROP}x{PIPELINE_CROP} '
+            f'| {card}')
+    agree = step15_card_vs_cpu(assets, side, run['entry'])
+    log(f'[8 card vs CPU] step 15 from the sample\'s input and rng state: '
+        f'card {agree["seconds"]["cuda"]:.3f} s, CPU '
+        f'{agree["seconds"]["cpu"]:.3f} s; {agree["leaves"]} fields '
+        f'compared, host fields equal, {agree["differ"]} raster elements '
+        f'differ (largest share beyond 1 LSB {agree["worst_share"]}); '
+        f'device time of the card\'s step 15 under torch.profiler '
+        + (f'{agree["device_ms"]:.3f} ms, '
+           f'{agree["device_ms"] / 1e3 / step_sum:.4f} of the sample\'s '
+           f'step sum; top kernels (ms) {agree["device_kernels"]}'
+           if agree['device_ms'] is not None else 'not measured (no '
+           'device events)')
+        + f' | {card}')
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1834,6 +2274,11 @@ def main() -> int:
         log_kernel('3 kernel', name, res, card)
 
     if '--kernels-only' in sys.argv[1:]:
+        return 0
+    if '--pipeline-area' in sys.argv[1:]:
+        # Phase 8 alone at another page side (no pool, 15 minutes at most).
+        side = int(sys.argv[sys.argv.index('--pipeline-area') + 1])
+        pipeline_phase(assets, side, card, with_pool=False, max_seconds=900)
         return 0
 
     # 4. Main path.
@@ -1980,9 +2425,15 @@ def main() -> int:
         f'collectives in that step {multi["gen_train_step_traffic"]}; '
         f'sharded checkpoint {multi["sharded_ckpt"]} '
         f'| launches {multi_launches} | {card}')
+
+    # 8. The 17-step text-detection pipeline, step 15 on the card.
+    begin = time.perf_counter()
+    pipeline_launches = pipeline_phase(assets, 640, card)
+    log(f'[8 done] phase 8 in {time.perf_counter() - begin:.1f} s')
+
     by_path = {'serving': launches, 'training': train_launches,
                'chain': chain_launches, 'dense': dense['launches'],
-               'multidevice': multi_launches}
+               'multidevice': multi_launches, 'pipeline': pipeline_launches}
 
     print(json.dumps({'kernels': [
         {

@@ -406,8 +406,10 @@ JAX_NAMES = frozenset({'jax', 'jnp', 'lax', 'pl', 'pltpu'})
 
 # Shared definitions that use no jax name themselves yet differ on purpose,
 # by module: device code that calls the port's PyTorch ops or takes a
-# ``device``, the port's own native loader, trimmed package exports, and
-# the mesh's shardings (the port's own Sharding in place of jax's).
+# ``device``, the port's own native loader, trimmed package exports, the
+# mesh's shardings (the port's own Sharding in place of jax's), and the
+# pools' device rules (a device error reaches ``run()``'s caller and is not
+# retried; no fork under a CUDA parent).
 PORTED = {
     'engine/font/atlas.py': {'pack_placements'},
     'mechanism/batched.py': {
@@ -429,8 +431,21 @@ PORTED = {
     'parallel/__init__.py': {'=__all__'},
     'parallel/mesh.py': {'batch_sharding', 'data_sharding', 'replicated'},
     'parallel/prefetch.py': {'DevicePrefetcher.__init__', 'prefetch_map'},
+    # The runner re-raises a device error instead of retrying it.
+    'pipeline/pool.py': {'PipelineRunner.__call__'},
+    # Step 15's config names the device of its batched flatten, and the
+    # step hands it on (flatten_text_regions_on_device itself uses jnp in
+    # the reference, so the check skips it).
+    'pipeline/text_detection/page_text_region.py': {
+        'PageTextRegionStepConfig:fields',
+        'PageTextRegionStep._build_flattened_device',
+    },
     'synth/__init__.py': {'=__all__'},
     'synth/device.py': {'_composite_overlays', 'synthesize_stream'},
+    # Workers pass a device error to run() and stop; a process pool refuses
+    # to fork under a CUDA parent.
+    'utility/pool.py': {'Pool.__init__', 'Pool.run', '_Worker.run',
+                        '_process_worker_main'},
 }
 
 

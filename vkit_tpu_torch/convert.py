@@ -10,11 +10,30 @@ import numpy as np
 import torch
 
 
+class DeviceError(RuntimeError):
+    """A fault of the device layer: no card where one was asked for, or a
+    kernel that does not build or launch.  A new random draw cannot mend
+    it, so the pools pass it to their caller instead of retrying."""
+
+
+def is_device_error(error: BaseException) -> bool:
+    """``error`` is a DeviceError, or a CUDA error raised by torch: an
+    out-of-memory, a failed launch or sync, a card that cannot be
+    initialised (none present, or a forked child of a CUDA parent)."""
+    if isinstance(error, (DeviceError, torch.cuda.OutOfMemoryError)):
+        return True
+    accelerator_error = getattr(torch, 'AcceleratorError', None)
+    if accelerator_error is not None and isinstance(error, accelerator_error):
+        return True
+    return isinstance(error, (RuntimeError, AssertionError)) \
+        and 'CUDA' in str(error)
+
+
 def resolve_device(device) -> torch.device:
     """``device`` as a torch.device; a CUDA device must exist."""
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError(f'device {device} requested but CUDA is not '
+        raise DeviceError(f'device {device} requested but CUDA is not '
                            'available')
     if device.type not in ('cpu', 'cuda'):
         raise ValueError(f'unsupported device {device}')

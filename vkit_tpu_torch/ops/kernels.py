@@ -11,8 +11,10 @@ vkit_tpu/ops/pallas_kernels.py:
 Which path launches which: the two-shear affine warp (ops/warp_mxu.py)
 launches ``row_shift_window_slab`` once per pass, or ``row_shift`` where a
 pass's span fails the 2048-lane window (a 1400-lane spread cut to 700); it
-serves the page warp of synth/device.py and RandomDistortion, and the
-text-region stream's flatten (ops/region.py, twice per flatten chunk).  The
+serves the page warp of synth/device.py and RandomDistortion, the
+text-region stream's flatten (ops/region.py, twice per flatten chunk), and
+step 15 of the text-detection pipeline (pipeline/text_detection/
+page_text_region.py, twice per source-tile bucket of its flatten).  The
 banded two-pass warp (ops/warp_banded.py) launches ``banded_line_resample``
 once per pass for smooth fields.  ``row_shift_window`` (K1 with one channel)
 has no caller on a path, in the JAX package or here.
@@ -40,6 +42,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from ..convert import DeviceError
 
 _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / 'csrc'
@@ -82,7 +86,7 @@ def _nvcc() -> str:
     candidate = Path(cuda_home) / 'bin' / 'nvcc'
     if candidate.exists():
         return str(candidate)
-    raise RuntimeError('nvcc not found: the CUDA kernels cannot be built')
+    raise DeviceError('nvcc not found: the CUDA kernels cannot be built')
 
 
 def library_path() -> Path:
@@ -102,7 +106,7 @@ def _build(target: Path):
     begin = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(
+        raise DeviceError(
             f'nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}'
         )
     os.replace(tmp, target)
@@ -118,7 +122,10 @@ def load_library() -> ctypes.CDLL:
         target = library_path()
         if not target.exists():
             _build(target)
-        lib = ctypes.CDLL(str(target))
+        try:
+            lib = ctypes.CDLL(str(target))
+        except OSError as error:
+            raise DeviceError(f'cannot load {target}: {error}') from error
         ptr, i32, i64, f32 = (
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
         )
@@ -142,7 +149,7 @@ def load_library() -> ctypes.CDLL:
 
 def _check_launch(name: str, code: int):
     if code != 0:
-        raise RuntimeError(
+        raise DeviceError(
             f'{name}: kernel launch failed with cudaError {code}'
         )
     LAUNCHES[name] += 1

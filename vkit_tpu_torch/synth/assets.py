@@ -4,7 +4,8 @@ and symbol images, and the page planner over them.
 The same set that tests/pipeline/fixtures.py builds for vkit_tpu's tests,
 written by the port's entry points (``entry.dryrun_multichip``), its
 example and chip_smoke.py, so that they run from a checkout with no asset
-download.
+download; and that file's configuration of the 17-step text-detection
+pipeline over them (``build_step_configs``).
 """
 import importlib.util
 import json
@@ -140,3 +141,66 @@ def make_planner(assets: dict, side: int, full_content: bool = True):
         image_configs=selector,
         **extra,
     ))
+
+
+def build_step_configs(assets: dict, side: int = 640,
+                       device: str = 'cuda') -> list:
+    """The 17 steps of the text-detection pipeline over ``assets``, as
+    tests/pipeline/fixtures.py configures them, on ``side`` x ``side``
+    pages; step 15 flattens its regions on ``device``."""
+    selector = [{'type': 'selector', 'weight': 1,
+                 'config': {'image_folders': [assets['bg_image_folder']]}}]
+    return [
+        {'name': 'text_detection.page_shape_step',
+         'config': {'area': side * side}},
+        {'name': 'text_detection.page_background_step',
+         'config': {'image_configs': selector}},
+        {'name': 'text_detection.page_layout_step'},
+        {'name': 'text_detection.page_image_step',
+         'config': {'image_configs': selector}},
+        {'name': 'text_detection.page_barcode_step'},
+        {'name': 'text_detection.page_seal_impresssion_step',
+         'config': {'seal_impression_configs': [
+             {'type': 'ellipse', 'weight': 1, 'config': {}},
+         ]}},
+        {'name': 'text_detection.page_text_line_step',
+         'config': {
+             'lexicon_collection_json': assets['lexicon_json'],
+             'font_collection_folder': assets['font_collection_folder'],
+             'char_sampler_configs': [{
+                 'type': 'corpus', 'weight': 1,
+                 'config': {'txt_files': [assets['corpus_txt']]},
+             }],
+             'font_configs': [
+                 {'type': 'freetype_default', 'weight': 1, 'config': {}},
+             ],
+         }},
+        {'name': 'text_detection.page_non_text_symbol_step',
+         'config': {'symbol_image_folders': [assets['symbol_image_folder']]}},
+        {'name': 'text_detection.page_text_line_bounding_box_step'},
+        {'name': 'text_detection.page_text_line_label_step',
+         'config': {
+             'enable_text_line_mask': True,
+             'enable_boundary_mask': True,
+             'enable_boundary_score_map': True,
+         }},
+        {'name': 'text_detection.page_assembler_step'},
+        {'name': 'text_detection.page_distortion_step',
+         'config': {'random_distortion_factory_config': {
+             'disabled_policy_names': ['defocus_blur', 'zoom_in_blur'],
+             'num_photometric_max': 1,
+         }}},
+        {'name': 'text_detection.page_resizing_step'},
+        {'name': 'text_detection.page_cropping_step',
+         'config': {'core_size': 256, 'pad_size': 32, 'num_samples': 2}},
+        {'name': 'text_detection.page_text_region_step',
+         'config': {'device': device}},
+        {'name': 'text_detection.page_text_region_label_step'},
+        {'name': 'text_detection.page_text_region_cropping_step',
+         'config': {
+             'core_size': 256,
+             'pad_size': 32,
+             'num_centroid_points_min': 5,
+             'num_deviate_points_min': 5,
+         }},
+    ]

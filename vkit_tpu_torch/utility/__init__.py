@@ -10,6 +10,7 @@ from .opt import (
     rng_shuffle,
     sample_resize_interpolation,
 )
+from .pool import Pool, PoolConfig
 from .structure import dyn_structure, get_generic_classes, is_attrs_class, read_json_file
 from .type import PathType
 from .profiling import StepTimer
