@@ -25,7 +25,10 @@ Phases, one line each (plus detail lines):
      warp's), captured there with their launches per batch; K1 also at its
      largest launch of another shape in that batch (the region flatten's),
      at starts that wrap mod 2048, and K3 at each rung of its tap ladder,
-     the last two for exactness only.  K4 (row_shift_window), which no path
+     the last two for exactness only, and K3's library yardstick
+     F.grid_sample on one-row images, which computes K3's function where
+     both weighted taps lie in [0, taps) (K3_OUT_OF_BAND; the count of
+     outputs out of band is logged).  K4 (row_shift_window), which no path
      calls, runs at K1's captured rows' RGB planes, one plane per row; K2
      (row_shift), which only the spread split routes, at a 1400-lane
      source cut to 700 outputs, and for exactness at odd widths, the widest
@@ -53,7 +56,12 @@ Phases, one line each (plus detail lines):
      outline pixels), and the photometric stage restricted to its
      deterministic ops.  Then, outside the counted run: the stream with
      the text-region stream off (the earlier main path's rate), one batch
-     with char gaussian maps, synthesize_page_batch's own stage spans
+     with char gaussian maps, two synth-640 batches each under
+     device_trace (the card's busy time and share of the batch's window,
+     timed by CUDA events, and its longest idle gaps; a trace that lacks a
+     device record of a launch or copy call, or a counted kernel launch,
+     is logged incomplete and its share not measured),
+     synthesize_page_batch's own stage spans
      (``region`` and its five sub-spans included), and
      RandomDistortion images/s over bench config 5's step, label
      co-transform and content boxes included (8 warm-ups, 6 timed steps);
@@ -110,10 +118,22 @@ Phases, one line each (plus detail lines):
      workers spawned and each with step 15 on the card.  (c) Step 15 again
      from (a)'s input and rng state, on the card and on the CPU: host
      fields equal, rasters within 1 LSB but for outline pixels, and the
-     card's run under torch.profiler for its device time.
+     card's run under torch.profiler for its device time;
+  9. grid warp and single-image ops: batched_grid_warp at bench configs
+     3, 4 and 2 (camera and MLS at 32 x 640x640x5, rotate 17 degrees at
+     64 x 640x640x5; RGB, a mask and a score map), each with the launch
+     counters zeroed just before and read just after (K3 must launch for
+     camera and MLS, K1 for rotate), held to the same call on the CPU within
+     1 LSB inside each sample's coverage eroded by 4 px, and timed (median
+     of 5 calls after 2 warm-ups); the camera call 5 times more, each
+     under device_trace (busy time and share, as in phase 4, and the top
+     device operations); then the reference's single-image ops at 640x640
+     on the card against the CPU (warp_perspective once with a numpy
+     matrix, whose maps must be built on the card), each within its
+     tolerance, with its ms.
 Then one JSON line of per-kernel results, the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Any failure raises (exit code != 0).
-`launches` in the JSON line sums the counted runs of phases 4, 6, 7 and 8
+`launches` in the JSON line sums the counted runs of phases 4, 6, 7, 8 and 9
 (`launches_by_path` has each), so K4 reads 0; the launches of one synth-640
 batch are on phase 3's capture line.
 Parity with the CPU assumes TF32 off for matmuls and cuDNN, as set here.
@@ -124,6 +144,7 @@ import importlib.metadata
 import importlib.util
 import json
 import pkgutil
+import re
 import statistics
 import subprocess
 import sys
@@ -153,9 +174,16 @@ TRAINING_PATH_KERNELS = ('row_shift_window_slab', 'banded_line_resample')
 # float32 operations/s outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
-# Why K3 has no library yardstick.
-K3_NO_LIBRARY = ('no single PyTorch call computes the two-tap hat resample '
-                 'masked to [0, taps) through the 2048-lane window')
+# K3's yardstick, F.grid_sample on one-row images, computes K3's function
+# only where both weighted taps lie in [0, taps): K3 drops a tap outside
+# that band, grid_sample reads it.  It must agree there within 1e-4 plus
+# the position error of its normalised grid (x -> 2x / (W - 1) - 1 and
+# back, a few float32 roundings of numbers up to W) times the steepest
+# step of the row next to the position; this bound's position error, 8
+# float32 ulps of W, is 5x the 6.1e-5 px measured on a CPU at W = 640.
+K3_OUT_OF_BAND = ('outputs with a weighted tap outside [0, taps): K3 masks '
+                  'it, grid_sample reads it')
+K3_LIBRARY_TOL = 1e-4
 # Share of a stacked region page's pixels that may differ between the card
 # and the CPU: the polygon test, the warped alpha and the coverage each
 # threshold a float32 value, so a last-bit difference flips a pixel on a
@@ -263,18 +291,21 @@ def bound(bytes_moved: float, operations: float = 0.0):
     return (byte_ms, 'bytes') if byte_ms >= op_ms else (op_ms, 'operations')
 
 
-def compare(name, kernel_fn, plain_fn, tol: float, work, library_fn=None):
+def compare(name, kernel_fn, plain_fn, tol: float, work, library_fn=None,
+            library_close=None):
     """Max abs difference of kernel and plain outputs, and the times of
     kernel, plain version and library call, measured in turns (plain,
     kernel, library, library, kernel, plain).  ``work`` is (bytes,
     operations) of the call; the library call must equal the plain
-    version bit for bit."""
+    version bit for bit, or pass ``library_close(library output, plain
+    output)``."""
     import torch
 
     err, exact = check_exact(name, kernel_fn, plain_fn, tol)
     if library_fn is not None:
-        check(torch.equal(library_fn(), plain_fn()),
-              f'{name}: the library call computes something else')
+        same = (torch.equal(library_fn(), plain_fn()) if library_close is None
+                else library_close(library_fn(), plain_fn()))
+        check(same, f'{name}: the library call computes something else')
     plain_a = time_ms(plain_fn)
     kern_a = time_ms(kernel_fn)
     lib_a = time_ms(library_fn) if library_fn is not None else None
@@ -309,8 +340,13 @@ def record_row_shifts(run):
     recorded; they add a copy of each launch's inputs to its time."""
     from vkit_tpu_torch.ops import warp_mxu
 
-    names = ('row_shift_window_slab', 'row_shift')
-    originals = {name: getattr(warp_mxu, name) for name in names}
+    return record_calls(run, warp_mxu, ('row_shift_window_slab', 'row_shift'))
+
+
+def record_calls(run, module, names):
+    """record_row_shifts for the wrappers ``names`` as ``module`` calls
+    them."""
+    originals = {name: getattr(module, name) for name in names}
     calls = []
 
     def recorder(name):
@@ -320,12 +356,12 @@ def record_row_shifts(run):
         return record
 
     for name in names:
-        setattr(warp_mxu, name, recorder(name))
+        setattr(module, name, recorder(name))
     try:
         run()
     finally:
         for name in names:
-            setattr(warp_mxu, name, originals[name])
+            setattr(module, name, originals[name])
     return calls
 
 
@@ -521,6 +557,54 @@ def banded_work(x, base, pos, taps: int):
     return 4.0 * floats, float(n * lines * jp * (12 + 3 * channels))
 
 
+def banded_grid_sample_library(x, base, pos, taps: int, border: float):
+    """K3's library yardstick: one F.grid_sample (bilinear, zero padding,
+    align_corners) over the source rows as (N * L, C, 1, W) images shifted
+    by the border value, at a grid built beforehand from ``pos``.  Returns
+    (the timed call, its check against the plain version on the in-band
+    outputs, the count of out-of-band outputs, a dict that the check fills
+    with its max abs difference in band)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vkit_tpu_torch.ops.kernels import _window_taps
+
+    n, lines, channels, width = x.shape
+    jp = pos.shape[-1]
+    rows = (x - border).reshape(n * lines, channels, 1, width).contiguous()
+    grid = torch.zeros((n * lines, 1, jp, 2), dtype=torch.float32,
+                       device=x.device)
+    grid[..., 0] = (pos.to(torch.float64) * (2.0 / (width - 1)) - 1.0).to(
+        torch.float32).reshape(n * lines, 1, jp)
+    lane = torch.arange(jp, device=x.device) % 128
+    b = base.repeat_interleave(8, dim=1)[:, :lines].repeat_interleave(
+        128, dim=2).to(torch.int64)
+    u = pos - (b + lane).to(torch.float32)
+    t0f = torch.floor(u)
+    in_band = ((t0f >= 0) & ((t0f + 1 < taps) | (u == t0f)))[:, :, None, :]
+    k0 = b + lane + t0f.to(torch.int64)
+    # The steepest step of the interpolant within a position error of
+    # pos: grid_sample may land just below an integer pos.
+    v0 = _window_taps(x, k0, border)
+    step = torch.maximum((_window_taps(x, k0 + 1, border) - v0).abs(),
+                         (v0 - _window_taps(x, k0 - 1, border)).abs())
+    del v0
+    bound = K3_LIBRARY_TOL + 8 * 2.0 ** -24 * width * step
+    found = {}
+
+    def close(got, want):
+        diff = (got.reshape(n, lines, channels, jp) + border - want).abs()
+        inside = in_band.expand_as(diff)
+        found['max_abs_err'] = float(diff[inside].max())
+        return bool((diff <= bound)[inside].all())
+
+    def library():
+        return F.grid_sample(rows, grid, mode='bilinear',
+                             padding_mode='zeros', align_corners=True)
+
+    return library, close, int((~in_band).sum()), found
+
+
 def kernel_phase(device, captured):
     """Each kernel against its plain version; K1 and K3 timed at the
     captured main-path arguments."""
@@ -654,14 +738,22 @@ def kernel_phase(device, captured):
     # K3 at its first launch in a synth-640 batch.
     (xb, base, pos, taps), kwargs = captured['banded_line_resample']
     border = float(kwargs.get('border_value', 0.0))
+    library, close, out_of_band, found = banded_grid_sample_library(
+        xb, base, pos, taps, border)
     results['banded_line_resample'] = compare(
         'banded_line_resample',
         lambda: K.banded_line_resample(xb, base, pos, taps, border),
         lambda: K.banded_line_resample_plain(xb, base, pos, taps, border),
         tol=1e-3, work=banded_work(xb, base, pos, taps),
+        library_fn=library, library_close=close,
     )
     results['banded_line_resample']['shape'] = (
         f'{tuple(xb.shape)} -> {pos.shape[-1]}, taps {taps}')
+    log(f'    banded_line_resample library (F.grid_sample, one-row images): '
+        f'max abs err {found["max_abs_err"]} on the in-band outputs; '
+        f'{out_of_band} of {pos.numel()} (line, output) pairs out of band '
+        f'({K3_OUT_OF_BAND}); border {border}')
+    del library, close
     # Exactness only: each rung of the tap ladder at random bases.
     n, lines = xb.shape[:2]
     jp = 768
@@ -691,7 +783,7 @@ def log_kernel(tag: str, name: str, res, card: str):
         f'{res["max_abs_err"]} bit_exact {res["bit_exact"]} ms '
         f'{res["ms"]:.4f} plain_ms {res["plain_ms"]:.4f} library_ms '
         + (f'{res["library_ms"]:.4f}' if res['library_ms'] is not None
-           else f'none ({K3_NO_LIBRARY})')
+           else 'none')
         + f' | bound {res["bound_ms"]:.4f} ms by {res["bound_by"]} '
         f'({res["bytes"] / 1e6:.1f} MB, {res["operations"]:.3g} ops), '
         f'share {res["share"]:.3f} | {card}')
@@ -925,6 +1017,218 @@ def main_path(device, planner, seed: int, side: int = 640, batch: int = 8,
     check(tuple(pages_out.shape) == (batch, spread_height, 700, 3)
           and pages_out.dtype == torch.uint8, 'spread split output')
     return rates
+
+
+def short_kernel_name(name: str) -> str:
+    """A device operation's name without its template arguments: the
+    kernel, and the functor it runs where the kernel is a generic one
+    (``elementwise_kernel[direct_copy_kernel_cuda]``)."""
+    words = re.findall(r'[A-Za-z_]\w*', name.replace('void ', '', 1))
+    kernels = [w for w in words if 'kernel' in w or w.endswith('_impl')]
+    if not kernels:
+        return name[:60]
+    inner = next((w for w in kernels[1:] if w != kernels[0]
+                  and not w.startswith('gpu_kernel')), None)
+    return kernels[0] + (f'[{inner}]' if inner else '')
+
+
+# Chrome-trace categories of work on the device.
+DEVICE_CATEGORIES = frozenset({'kernel', 'gpu_memcpy', 'gpu_memset'})
+# CUDA API calls that put work on the device: in a complete trace
+# each has a device record of its correlation id.
+DEVICE_WORK_CALL = re.compile(
+    r'^cu(da)?(LaunchKernel|LaunchCooperativeKernel|Memcpy|Memset)')
+# The device function each kernel wrapper launches (K4 runs K1's).
+KERNEL_FUNCTIONS = {
+    'row_shift_window_slab': 'row_shift_window_slab_kernel',
+    'row_shift_window': 'row_shift_window_slab_kernel',
+    'row_shift': 'row_shift_kernel',
+    'banded_line_resample': 'banded_resample_kernel',
+}
+
+
+# Launches that open every traced session ahead of the measured call (a
+# spin kernel each), left out of the reading: the profiler on the card has
+# been seen to lose a session's first 18 device records, every other
+# session, in runs that were otherwise alike.
+TRACE_WARMUP_LAUNCHES = 64
+
+
+def read_trace(log_dir, launches, top: int = 5,
+               warmup: int = TRACE_WARMUP_LAUNCHES):
+    """The one Chrome trace that device_trace wrote into ``log_dir``, less
+    its first ``warmup`` launch calls and their device records (spin
+    kernels): the device's busy time (the union of its kernel, copy and
+    set intervals), the ``top`` longest idle gaps between them and device
+    operations by summed time, and what the trace lacks (``missing``): the
+    calls that put work on the device without a device record of their
+    correlation id (with their places among the calls), and the kernel
+    launches the counters saw (``launches``) without an event."""
+    files = sorted(Path(log_dir).glob('*.json'))
+    check(len(files) == 1, f'device_trace wrote {len(files)} files')
+    with open(files[0]) as f:
+        events = json.load(f)
+    if isinstance(events, dict):
+        events = events.get('traceEvents', [])
+
+    def correlation(e):
+        return e.get('args', {}).get('correlation')
+
+    events = [e for e in events if e.get('ph') == 'X' and 'ts' in e]
+    calls = sorted((e for e in events
+                    if e.get('cat') in ('cuda_runtime', 'cuda_driver')
+                    and DEVICE_WORK_CALL.match(e.get('name', ''))),
+                   key=lambda e: correlation(e) or 0)
+    warm = {correlation(e) for e in calls[:warmup]}
+    calls = calls[warmup:]
+    on_device = [e for e in events if e.get('cat') in DEVICE_CATEGORIES]
+    missing = {}
+    if any(('spin_kernel' in e.get('name', '')) != (correlation(e) in warm)
+           for e in on_device):
+        missing['the warm-up apart from the call'] = 1
+    on_device = [e for e in on_device if correlation(e) not in warm]
+    recorded = {correlation(e) for e in on_device}
+    places = []
+    for i, e in enumerate(calls):
+        if correlation(e) not in recorded:
+            missing[e['name']] = missing.get(e['name'], 0) + 1
+            places.append(i)
+    if places:
+        missing['places (first, last, of)'] = (places[0], places[-1],
+                                               len(calls))
+    events_of = {}
+    for name, count in launches.items():
+        fn = KERNEL_FUNCTIONS[name]
+        events_of[fn] = events_of.get(fn, 0) + count
+    for fn, count in events_of.items():
+        seen = sum(1 for e in on_device
+                   if re.search(rf'\b{fn}\b', e.get('name', '')))
+        if seen != count:
+            missing[f'{fn} (launches, events)'] = (count, seen)
+    intervals = sorted((float(e['ts']), float(e['ts']) + float(e.get('dur', 0)))
+                       for e in on_device)
+    busy, gaps, per_op = 0.0, [], {}
+    for e in on_device:
+        per_op[e['name']] = per_op.get(e['name'], 0.0) + float(e.get('dur', 0))
+    cur_begin = cur_end = None
+    for begin, end in intervals:
+        if cur_end is None or begin > cur_end:
+            if cur_end is not None:
+                busy += cur_end - cur_begin
+                gaps.append(begin - cur_end)
+            cur_begin, cur_end = begin, end
+        else:
+            cur_end = max(cur_end, end)
+    if cur_end is not None:
+        busy += cur_end - cur_begin
+    if not on_device:
+        missing['any device operation'] = 0
+    return {
+        'busy_us': busy, 'gaps_us': sorted(gaps, reverse=True)[:top],
+        'ops_us': sorted(per_op.items(), key=lambda kv: -kv[1])[:top],
+        'missing': missing, 'trace_bytes': files[0].stat().st_size,
+    }
+
+
+def traced_runs(device, run, count: int, host: bool = True):
+    """``run()`` ``count`` times, each under a device_trace of its own
+    (opened by TRACE_WARMUP_LAUNCHES spin kernels) and between two CUDA
+    events on the current stream: the device's clock of the call's window,
+    from its first host step to its last device operation.
+    A trace is complete when it lacks nothing (read_trace's ``missing``)
+    and its busy time fits inside the events' window; only then does the
+    reading get a ``busy_share`` (busy time over that window), else None.
+    Returns the readings (with each run's wall seconds and events' ms) and
+    the last run's result."""
+    import tempfile
+
+    import torch
+
+    from vkit_tpu_torch.ops import kernels as K
+    from vkit_tpu_torch.utility import device_trace
+
+    readings, result = [], None
+    for _ in range(count):
+        sync(device)
+        before = dict(K.LAUNCHES)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with tempfile.TemporaryDirectory() as log_dir:
+            with device_trace(log_dir, host=host):
+                for _ in range(TRACE_WARMUP_LAUNCHES):
+                    torch.cuda._sleep(1000)
+                sync(device)
+                begin = time.perf_counter()
+                start.record()
+                result = run()
+                end.record()
+                sync(device)
+                seconds = time.perf_counter() - begin  # before the export
+            reading = read_trace(log_dir, {
+                name: K.LAUNCHES[name] - before[name] for name in K.LAUNCHES})
+        window_us = start.elapsed_time(end) * 1e3
+        if reading['busy_us'] > window_us:
+            reading['missing']['busy beyond the events\' window'] = 1
+        reading.update(
+            seconds=seconds, window_us=window_us,
+            busy_share=(None if reading['missing']
+                        else reading['busy_us'] / window_us))
+        readings.append(reading)
+    return readings, result
+
+
+def log_traced(label, readings, card):
+    """One line per traced run, and the spread of the complete ones'
+    busy times; an incomplete trace's busy share is not measured."""
+    for i, r in enumerate(readings, 1):
+        state = (f'busy share {r["busy_share"]}' if r['busy_share'] is not None
+                 else f'busy share not measured: trace incomplete, lacks '
+                 f'{r["missing"]}')
+        log(f'[{label} {i}/{len(readings)}] {r["seconds"]} s wall, device '
+            f'busy {r["busy_us"] / 1e3} ms of a {r["window_us"] / 1e3} ms '
+            f'window (CUDA events), {state}; longest idle gaps (ms) '
+            f'{[round(g / 1e3, 3) for g in r["gaps_us"]]}; top device ops '
+            f'(ms) ' + ', '.join(f'{short_kernel_name(op)} {us / 1e3:.3f}'
+                                 for op, us in r['ops_us'])
+            + f'; trace {r["trace_bytes"]} bytes | {card}')
+    complete = [r for r in readings if r['busy_share'] is not None]
+    busy = [r['busy_us'] / 1e3 for r in complete]
+    shares = [r['busy_share'] for r in complete]
+    log(f'[{label}] {len(complete)} of {len(readings)} traces complete'
+        + (f': busy ms min {min(busy)} median {statistics.median(busy)} max '
+           f'{max(busy)}, busy share min {min(shares)} median '
+           f'{statistics.median(shares)} max {max(shares)}' if complete
+           else ': busy share not measured') + f' | {card}')
+
+
+def traced_synth_batches(device, planner, seed: int, side: int = 640,
+                         batch: int = 8, count: int = 2):
+    """synthesize_stream as phase 4 calls it (bench config 6), its first
+    batch untraced and the next ``count`` each under device_trace without
+    the host's operator events (some 1e5 small operators a batch).
+    Returns traced_runs' readings."""
+    from vkit_tpu_torch.synth import (
+        CropConfig,
+        RegionStreamConfig,
+        synthesize_stream,
+    )
+
+    crop_size = side * 4 // 5
+    stream = synthesize_stream(
+        planner, batch, 5, np.random.default_rng(seed),
+        num_batches=1 + count,
+        crop_config=CropConfig(core_size=crop_size, num_per_page=2),
+        region_config=RegionStreamConfig(num_crops_per_page=2),
+        keep_on_device=True, device=device)
+    check_synth(next(stream), batch, side, crop_size)
+
+    def next_batch():
+        out = next(stream)
+        check_synth(out, batch, side, crop_size)
+        return out
+
+    readings, _ = traced_runs(device, next_batch, count, host=False)
+    stream.close()
+    return readings
 
 
 def _label_sample(side: int):
@@ -2208,6 +2512,307 @@ def pipeline_phase(assets: dict, side: int, card: str,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: batched_grid_warp and the single-image ops.
+# ---------------------------------------------------------------------------
+
+GRID_SIDE = 640
+# Bench configs 2-4 through batched_grid_warp: (distortion, batch, the
+# kernel its route must launch, seed).
+GRID_CASES = {
+    'grid-camera-32x640': ('camera_cubic_curve', 32, 'banded_line_resample',
+                           910),
+    'grid-mls-32x640': ('similarity_mls', 32, 'banded_line_resample', 920),
+    'grid-rotate-64x640': ('rotate', 64, 'row_shift_window_slab', 930),
+}
+# Traced runs of the camera call: the spread of its busy time.
+TRACED_GRID_RUNS = 5
+
+
+def grid_configs(name: str, batch: int, side: int = GRID_SIDE):
+    """bench.py's configs: _camera_config() (:250), the MLS handle points
+    of bench_mls_glyphs (:331-343), rotate at 17 degrees (:232)."""
+    from vkit_tpu_torch.element import Point
+
+    if name == 'camera_cubic_curve':
+        config = {
+            'curve_alpha': 12, 'curve_beta': -10, 'curve_direction': 0,
+            'curve_scale': 1.0,
+            'camera_model_config': {
+                'rotation_unit_vec': [1.0, 0.0, 0.0], 'rotation_theta': 6,
+            },
+            'grid_size': 16,
+        }
+    elif name == 'similarity_mls':
+        config = {
+            'src_handle_points': [
+                Point.create(y=100, x=100), Point.create(y=100, x=side - 100),
+                Point.create(y=side - 100, x=100),
+                Point.create(y=side - 100, x=side - 100),
+            ],
+            'dst_handle_points': [
+                Point.create(y=120, x=90), Point.create(y=80, x=side - 80),
+                Point.create(y=side - 110, x=130),
+                Point.create(y=side - 90, x=side - 120),
+            ],
+            'grid_size': 16,
+        }
+    else:
+        check(name == 'rotate', f'no grid config for {name}')
+        config = {'angle': 17.0}
+    return [config] * batch
+
+
+def grid_stack(seed: int, batch: int, side: int = GRID_SIDE):
+    """bench.py's stack: random RGB as float32, a full mask and a random
+    score map (_label_stack, :164)."""
+    gen = np.random.default_rng(seed)
+    stack = np.empty((batch, side, side, 5), dtype=np.float32)
+    stack[..., :3] = gen.integers(0, 256, (batch, side, side, 3))
+    stack[..., 3] = 1.0
+    stack[..., 4] = gen.random((batch, side, side), dtype=np.float32)
+    return stack
+
+
+def grid_warp_case(device, label: str, side: int = GRID_SIDE):
+    """One bench config through batched_grid_warp on the card: the counted
+    call (its route's kernel must launch), the same call on the CPU (plain
+    versions) within 1 LSB inside each sample's coverage eroded by 4 px,
+    and s per call (median of 5 after 2 warm-ups, host planning included).
+    Returns the readings and a function that repeats the call."""
+    import torch
+    from scipy.ndimage import binary_erosion
+
+    from vkit_tpu_torch.mechanism import distortion
+    from vkit_tpu_torch.mechanism.batched import batched_grid_warp
+    from vkit_tpu_torch.ops import kernels as K
+    from vkit_tpu_torch.ops import warp_banded, warp_mxu
+
+    name, batch, kernel, seed = GRID_CASES[label]
+    warp = getattr(distortion, name)
+    configs = grid_configs(name, batch, side)
+    stack_np = grid_stack(seed, batch, side)
+    stack = torch.from_numpy(stack_np).to(device)
+
+    def call(images=stack, **kwargs):
+        return batched_grid_warp(warp, configs, images,
+                                 rng=np.random.default_rng(seed), **kwargs)
+
+    site = warp_banded if kernel == 'banded_line_resample' else warp_mxu
+    results = []
+    sync(device)
+    K.reset_launch_counts()
+    recorded = record_calls(lambda: results.append(call()), site, (kernel,))
+    sync(device)
+    launches = dict(K.LAUNCHES)
+    out, shapes, covs = results[0]
+    check(launches[kernel] > 0, f'{label}: {kernel} never launched: '
+          f'{launches}')
+    check(len(recorded) == launches[kernel],
+          f'{label}: {len(recorded)} launches recorded, {launches} counted')
+    check(out.shape[0] == batch and out.shape[3] == 5
+          and out.dtype == torch.float32 and bool(torch.isfinite(out).all()),
+          f'{label}: output {tuple(out.shape)} {out.dtype}')
+    host, host_shapes, _ = call(stack_np, device='cpu')
+    check(host_shapes == shapes, f'{label}: shapes differ from the CPU run')
+    out = out.cpu().numpy()
+    host = host.numpy()
+    worst = mean = 0.0
+    for i, (h, w) in enumerate(shapes):
+        core = binary_erosion(covs[i], iterations=4)
+        check(core.sum() > h * w // 2, f'{label}: sample {i} barely covered')
+        diff = np.abs(out[i, :h, :w] - host[i, :h, :w])[core]
+        worst = max(worst, float(diff.max()))
+        mean = max(mean, float(diff.mean()))
+    check(worst <= 1.0, f'{label}: card vs CPU {worst} LSB')
+    del out, host
+    times = []
+    for step in range(7):
+        sync(device)
+        begin = time.perf_counter()
+        call()
+        sync(device)
+        if step >= 2:
+            times.append(time.perf_counter() - begin)
+    seconds = statistics.median(times)
+    return {'launches': launches, 'max_lsb': worst, 'mean_lsb': mean,
+            'seconds': seconds, 'images_per_s': batch / seconds,
+            'shape': tuple(shapes[0]), 'times': times,
+            'recorded': recorded}, call
+
+
+def compare_recorded(label: str, name: str, args, kwargs):
+    """compare() of one recorded launch: K1 / K2 bit for bit
+    (compare_row_shift), K3 within 1e-3 with its grid_sample yardstick."""
+    from vkit_tpu_torch.ops import kernels as K
+
+    if name != 'banded_line_resample':
+        return compare_row_shift(label, name, args, kwargs)
+    x, base, pos, taps = args
+    border = float(kwargs.get('border_value', 0.0))
+    library, close, _, _ = banded_grid_sample_library(x, base, pos, taps,
+                                                      border)
+    result = compare(
+        label,
+        lambda: K.banded_line_resample(x, base, pos, taps, border),
+        lambda: K.banded_line_resample_plain(x, base, pos, taps, border),
+        tol=1e-3, work=banded_work(x, base, pos, taps),
+        library_fn=library, library_close=close)
+    result['shape'] = f'{tuple(x.shape)} -> {pos.shape[-1]}, taps {taps}'
+    return result
+
+
+def _smooth_page(gen, shape):
+    from scipy.ndimage import gaussian_filter
+
+    sigma = (1.5, 1.5, 0)[:len(shape)]
+    return gaussian_filter(gen.random(shape) * 255, sigma=sigma).astype(
+        np.uint8)
+
+
+def _jpeg_close(got, want):
+    """ops/effect.py jpeg_quality's tolerance (tests/test_torch_api_tail.py):
+    at most 4% of the pixels apart, mean 0.15 LSB, max 32."""
+    diff = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    return ((diff > 0).mean() <= 0.04 and diff.mean() <= 0.15
+            and diff.max() <= 32), float(diff.max())
+
+
+def single_image_ops(device, side: int = GRID_SIDE):
+    """The reference's single-image ops at 640 x 640 on the card against
+    the CPU, each within its tolerance, with its ms (CUDA events).
+    Returns {op: (max LSB apart, ms)}."""
+    import torch
+
+    from vkit_tpu_torch.ops import blur, color, effect, warp
+
+    gen = np.random.default_rng(940)
+    image = _smooth_page(gen, (side, side, 3))
+    gray = _smooth_page(gen, (side, side))
+    theta = np.radians(5.0)
+    c = (side - 1) / 2
+    affine = np.array([
+        [np.cos(theta), -np.sin(theta), c - np.cos(theta) * c
+         + np.sin(theta) * c + 7],
+        [np.sin(theta), np.cos(theta), c - np.sin(theta) * c
+         - np.cos(theta) * c - 5],
+    ])
+    perspective = np.array([[1.02, 0.06, -12.0], [0.03, 0.97, 9.0],
+                            [4e-5, -3e-5, 1.0]])
+    ys, xs = np.mgrid[0:side, 0:side].astype(np.float64)
+    map_y = (ys + 6 * np.sin(xs / 31)).astype(np.float32)
+    map_x = (xs + 5 * np.cos(ys / 23)).astype(np.float32)
+
+    def lsb(limit):
+        def close(got, want):
+            diff = np.abs(got.astype(np.float64) - want.astype(np.float64))
+            return float(diff.max()) <= limit, float(diff.max())
+        return close
+
+    def nearest_flips(got, want):
+        diff = np.abs(got.astype(np.int64) - want.astype(np.int64))
+        return float((diff > 0).mean()) <= 1e-3, float(diff.max())
+
+    # (op, its call on tensors of a device, its check of card vs CPU).
+    cases = [
+        ('warp_affine', lambda d: warp.warp_affine(
+            image_on[d], mats[d][0], (side, side), 'bilinear', 255.0),
+         lsb(1)),
+        ('warp_perspective', lambda d: warp.warp_perspective(
+            image_on[d], mats[d][1], (side, side), 'bilinear', 255.0),
+         lsb(1)),
+        # A numpy matrix: the maps are built on the image's device.
+        ('warp_perspective numpy matrix', lambda d: warp.warp_perspective(
+            image_on[d], perspective, (side, side), 'bilinear', 255.0),
+         lsb(1)),
+        ('warp_affine nearest', lambda d: warp.warp_affine(
+            image_on[d], mats[d][0], (side, side), 'nearest', 255.0),
+         nearest_flips),
+        ('remap nearest', lambda d: warp.remap(
+            image_on[d], *maps[d], 'nearest', 255.0), lsb(0)),
+        ('remap bilinear', lambda d: warp.remap(
+            image_on[d], *maps[d], 'bilinear', 255.0), lsb(1)),
+        ('equalize_hist', lambda d: color.equalize_hist(gray_on[d]), lsb(0)),
+        ('gaussian_blur', lambda d: blur.gaussian_blur(image_on[d], 1.5),
+         lsb(1)),
+        ('box_blur', lambda d: blur.box_blur(image_on[d], 5), lsb(1)),
+        ('jpeg_quality', lambda d: effect.jpeg_quality(image_on[d], 50),
+         _jpeg_close),
+        ('pixelation', lambda d: effect.pixelation(image_on[d], (160, 160)),
+         lsb(1)),
+    ]
+    cpu = torch.device('cpu')
+    image_on, gray_on, mats, maps = {}, {}, {}, {}
+    for d in (device, cpu):
+        image_on[d] = torch.from_numpy(image).to(d)
+        gray_on[d] = torch.from_numpy(gray).to(d)
+        mats[d] = [torch.from_numpy(m).to(d) for m in (affine, perspective)]
+        maps[d] = [torch.from_numpy(m).to(d) for m in (map_y, map_x)]
+    check(warp.affine_maps(perspective, (side, side))[0].device.type
+          == device.type, 'affine_maps built a numpy matrix\'s maps off the '
+          'card')
+    results = {}
+    for op, fn, close in cases:
+        got = fn(device)
+        sync(device)
+        check(got.device.type == device.type, f'{op} left the card')
+        ok, worst = close(got.cpu().numpy(), fn(cpu).numpy())
+        check(ok, f'{op}: card vs CPU {worst} LSB')
+        results[op] = (worst, time_ms(lambda: fn(device)))
+    return results
+
+
+def grid_phase(device, card: str):
+    """Phase 9: bench configs 2-4 through batched_grid_warp, (a) once more
+    under device_trace, and the single-image ops.  Returns the launches of
+    the three counted calls, summed."""
+    from vkit_tpu_torch.ops import kernels as K
+
+    launches = {name: 0 for name in K.LAUNCHES}
+    repeat = None
+    for label in GRID_CASES:
+        res, call = grid_warp_case(device, label)
+        for name, count in res['launches'].items():
+            launches[name] += count
+        name, batch = GRID_CASES[label][:2]
+        log(f'[9 {label}] batched_grid_warp({name}, {batch} x '
+            f'{GRID_SIDE}x{GRID_SIDE}x5) -> {res["shape"]}: '
+            f'{res["seconds"]} s per call (median of 5 after 2 warm-ups, '
+            f'host planning included; {res["times"]}), '
+            f'{res["images_per_s"]} images/s | launches {res["launches"]} '
+            f'| card vs CPU inside the coverage eroded by 4 px: max '
+            f'{res["max_lsb"]} LSB, worst sample mean {res["mean_lsb"]} '
+            f'| {card}')
+        # The case's largest launch, timed with its bound.
+        kernel_name, args, kwargs = max(
+            res.pop('recorded'), key=lambda c: c[1][0].numel())
+        log_kernel('9 kernel', f'{kernel_name}/{label} largest of '
+                   f'{res["launches"][kernel_name]}',
+                   compare_recorded(label, kernel_name, args, kwargs), card)
+        del args, kwargs
+        if repeat is None:
+            repeat = call
+        torch_empty_cache()
+    sync(device)
+    readings, _ = traced_runs(device, repeat, TRACED_GRID_RUNS)
+    log_traced('9 trace grid-camera-32x640 under device_trace', readings,
+               card)
+    del repeat
+    torch_empty_cache()
+    ops = single_image_ops(device)
+    log('[9 single-image ops] 640x640, card vs CPU max LSB apart and ms per '
+        'call: ' + ', '.join(f'{op} {worst} LSB {ms:.4f} ms'
+                             for op, (worst, ms) in ops.items())
+        + f' | {card}')
+    return launches
+
+
+def torch_empty_cache():
+    import torch
+
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2307,6 +2912,8 @@ def main() -> int:
         f'| card vs CPU: {img_err} LSB, labels {lab_err}, text regions '
         f'(share of pixels apart) {region_err}, deterministic '
         f'photometric stage {photo_err} LSB | {card}')
+    log_traced('4 trace synth-640 batch under device_trace(host=False)',
+               traced_synth_batches(device, planner, seed=120), card)
     off_rate, off_crops, _, _ = stream_rate(device, planner, 110,
                                             num_batches=2, regions=False)
     log(f'[4 region off] synthesize_stream {off_rate} pages/s (2 batches of '
@@ -2431,9 +3038,15 @@ def main() -> int:
     pipeline_launches = pipeline_phase(assets, 640, card)
     log(f'[8 done] phase 8 in {time.perf_counter() - begin:.1f} s')
 
+    # 9. batched_grid_warp at bench configs 2-4, the single-image ops.
+    begin = time.perf_counter()
+    grid_launches = grid_phase(device, card)
+    log(f'[9 done] phase 9 in {time.perf_counter() - begin:.1f} s')
+
     by_path = {'serving': launches, 'training': train_launches,
                'chain': chain_launches, 'dense': dense['launches'],
-               'multidevice': multi_launches, 'pipeline': pipeline_launches}
+               'multidevice': multi_launches, 'pipeline': pipeline_launches,
+               'grid': grid_launches}
 
     print(json.dumps({'kernels': [
         {

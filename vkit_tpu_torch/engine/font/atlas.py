@@ -14,10 +14,11 @@ reference's own code:
 
 The device half uploads the host ``AtlasPack.tiles_and_resolver()`` build
 as one tensor, cached per (pack, device), and ``pack_placements`` resolves
-glyph ids with that same resolver.  (The reference's
-``device_tiles_and_resolver`` method lays tiles out in capacity slabs for
-its compiled signature; it has no counterpart here.  Tile contents are
-identical, so composites match.)
+glyph ids with that same resolver; the method
+``AtlasPack.device_tiles_and_resolver`` hands it on.  (The reference's
+method lays tiles out in capacity slabs that keep its compiled signature
+stable under growth; here the buffer is the host build's shape.  Ids
+resolve to the same tiles, so composites match.)
 
 Residual-glyph cleanup note: the host path paints the whole line first and
 must erase pixels of a trimmed char that bled into the kept span
@@ -467,6 +468,14 @@ class AtlasPack:
         self._device_cache = None
         return tiles, resolver
 
+    def device_tiles_and_resolver(self, device='cuda'):
+        """The tile array on ``device`` (the card unless the caller asks
+        for the CPU) and the id resolver: ``device_tiles_and_resolver``
+        below, which uploads again only when the pack grew.  The
+        reference's capacity slabs, which held a compiled program's
+        signature stable under growth, have no job here."""
+        return device_tiles_and_resolver(self, device)
+
 
 _GLOBAL_PACK: Optional[AtlasPack] = None
 
@@ -556,3 +565,40 @@ def pack_placements(
     out_tile = _quantize_out_tile(max_extent)
     return build_placements(rows, num_channels=3, bucket=bucket), tiles, \
         out_tile
+
+
+def placements_for_text_lines(
+    entries: Sequence[Tuple[TextLineLayout, Tuple[int, int], int, Tuple[int, int, int]]],
+    bucket: int = 256,
+):
+    """Flatten (layout, (page_up, page_left), sample_id, color) entries into
+    the compositor's placement table.
+
+    Returns (GlyphPlacements, out_tile) — out_tile is the static patch size
+    covering the largest destination box, rounded up to a multiple of 32 so
+    compile count stays bounded across batches.
+    """
+    from ...ops.glyph import build_placements
+
+    rows = []
+    max_extent = 1
+    for layout, (page_up, page_left), sample_id, color in entries:
+        for cb, gid, src_h, src_w in zip(
+            layout.char_boxes, layout.glyph_ids,
+            layout.src_hs, layout.src_ws,
+        ):
+            rows.append({
+                'glyph_id': gid,
+                'sample_id': sample_id,
+                'up': page_up + cb.up,
+                'left': page_left + cb.left,
+                'dst_h': cb.height,
+                'dst_w': cb.width,
+                'src_h': float(src_h),
+                'src_w': float(src_w),
+                'color': np.asarray(color, dtype=np.float32),
+            })
+            max_extent = max(max_extent, cb.height, cb.width)
+
+    out_tile = _quantize_out_tile(max_extent)
+    return build_placements(rows, num_channels=3, bucket=bucket), out_tile

@@ -15,8 +15,10 @@ images' device and match the reference in distribution only.
 The geometric half: the device helpers ``_coarse_gather_remap``,
 ``_coarse_gather_warp``, ``_upsample_node_maps``, ``_scatter_samples``,
 ``_banded_group_scatter``, ``_merge_subbatches``, ``_affine_sub_warp``,
-``_mean_pool2`` and ``_coarse_mxu_warp``, and ``batched_plan_warp`` in modes
-``auto``, ``gather`` and ``dense``.  The host side (``plan_backward_maps``,
+``_mean_pool2`` and ``_coarse_mxu_warp``, ``batched_plan_warp`` in modes
+``auto``, ``gather`` and ``dense``, and ``batched_grid_warp``, which plans
+one geometric distortion per sample on the host and warps through it.
+The host side (``plan_backward_maps``,
 ``_build_coarse_nodes``, ``_bucket_pad``, ``LazyCoverages``, the affine /
 banded / gather routing, the plans) is the reference's own code, so both
 packages send every sample down the same route.  Scatters write in place
@@ -976,6 +978,28 @@ def batched_plan_warp(
     return warped, shapes, coverages
 
 
+def batched_grid_warp(
+    distortion,
+    configs: Sequence,
+    images,
+    rng=None,
+    border_value: float = 0.0,
+    taps_max: int = 24,
+    device='cuda',
+):
+    """Batch one geometric distortion (per-sample configs) through the
+    warp; see batched_plan_warp.  A tensor batch stays on its own device; a
+    numpy batch goes to ``device`` (the CPU only when asked for)."""
+    if not isinstance(images, torch.Tensor):
+        images = convert.to_tensor(images, convert.resolve_device(device))
+    n, h_in, w_in = images.shape[:3]
+    assert len(configs) == n
+    if rng is None:
+        rng = np.random.default_rng(0)
+    plans = [distortion.plan(cfg, (h_in, w_in), rng) for cfg in configs]
+    return batched_plan_warp(plans, images, border_value, taps_max)
+
+
 # ---------------------------------------------------------------------------
 # The photometric catalog: batched twins of the per-element distortions on
 # (N, H, W, 3) uint8 batches.
@@ -1434,6 +1458,11 @@ def batched_rectangle_streak(images, configs):
 
 def batched_ellipse_streak(images, configs):
     return _streak_via_prep('ellipse_streak', images, configs)
+
+
+def attr_evolve_streak(cfg, **kwargs):
+    import attr as _attr
+    return _attr.evolve(cfg, **kwargs)
 
 
 # Shape-changing ops as per-sample resampling matrices.
@@ -2068,3 +2097,11 @@ def batch_distort_images(name: str, configs: Sequence, images, seed: int = 0):
                          f'{images.shape[0]}')
     return batch_distort_members(name, list(enumerate(configs)), images,
                                  seed)
+
+
+def batch_distort_images_compiled(name: str, configs: Sequence, images,
+                                  seed: int = 0):
+    """The reference's one-dispatch form of ``batch_distort_images``.  The
+    port runs no compiled program, so it is ``batch_distort_images`` under
+    the reference's name (``seed`` where the reference takes ``key``)."""
+    return batch_distort_images(name, configs, images, seed)

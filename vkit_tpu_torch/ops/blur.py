@@ -3,7 +3,8 @@
 Port of vkit_tpu/ops/blur.py ``_depthwise_conv2d`` and ``filter2d`` as a
 reflect pad and a grouped ``F.conv2d``; the catalog's blurs
 (mechanism/batched.py) build their per-sample kernels on the host and call
-``filter2d``.  ``jnp.pad(mode='reflect')`` is reflect-101, as torch's
+``filter2d``, and so do the single-image ``gaussian_blur`` and
+``box_blur``.  ``jnp.pad(mode='reflect')`` is reflect-101, as torch's
 reflect mode is.
 
 On CUDA, ``F.conv2d`` runs in cuDNN, which uses TF32 unless
@@ -92,6 +93,21 @@ def filter2d(image, kernel2d):
         if not had_c:
             out = out[..., 0]
     return out
+
+
+def gaussian_blur(image, sigma: float, ksize: int = 0):
+    """cv2.GaussianBlur equivalent (separable)."""
+    if ksize <= 0:
+        # cv2 derives ksize from sigma when ksize==0.
+        ksize = int(round(sigma * 3 * 2 + 1)) | 1
+    k1 = gaussian_kernel1d(sigma, ksize)
+    kernel = np.outer(k1, k1)
+    return filter2d(image, kernel)
+
+
+def box_blur(image, ksize: int):
+    kernel = np.full((ksize, ksize), 1.0 / (ksize * ksize), dtype=np.float32)
+    return filter2d(image, kernel)
 
 
 # --------------------------------------------------------------------------

@@ -5,7 +5,7 @@ operation for operation.  ``equalize_hist_batch`` counts its 256-bin
 histograms with ``scatter_add`` and applies the LUT with a gather: the
 reference's nibble-decomposed one-hot contractions stood in for a
 scatter-add on the TPU.  Every step is integer-exact, so both give the same
-planes.
+planes.  ``equalize_hist`` is the reference's single-plane form over it.
 """
 import torch
 
@@ -122,3 +122,8 @@ def equalize_hist_batch(channels):
     mapped = torch.gather(lut, 1, v).reshape(b, h, w).to(torch.uint8)
     same = (cdf_min >= hw).reshape(b, 1, 1)  # Single-value plane: identity.
     return torch.where(same, channels, mapped)
+
+
+def equalize_hist(channel):
+    """Per-channel histogram equalization (cv2.equalizeHist semantics)."""
+    return equalize_hist_batch(channel[None])[0]

@@ -243,6 +243,27 @@ def h2v2_downsample(c):
     return (v + bias) >> 2
 
 
+def h2v1_fancy_rows(sub):
+    """Horizontal triangular upsample of each row (jdsample.c inner loop).
+
+    out[2i]   = (3*s[i] + s[i-1] + 1) >> 2
+    out[2i+1] = (3*s[i] + s[i+1] + 2) >> 2
+    with edge columns copied."""
+    h, w = sub.shape
+    s = sub.astype(np.int64)
+    left = np.concatenate([s[:, :1], s[:, :-1]], axis=1)
+    right = np.concatenate([s[:, 1:], s[:, -1:]], axis=1)
+    even = (s * 3 + left + 1) >> 2
+    odd = (s * 3 + right + 2) >> 2
+    out = np.empty((h, w * 2), dtype=np.int64)
+    out[:, 0::2] = even
+    out[:, 1::2] = odd
+    # Edge special cases: out[0] = s[0], out[-1] = s[-1] exactly?  The C
+    # code computes out[0] from (3*s0 + s0...) via the same formula with
+    # the duplicated neighbour — which the padding above already does.
+    return out
+
+
 def h2v2_fancy_upsample(sub):
     """jdsample.c h2v2_fancy_upsample: vertical 3:1 blend of neighbouring
     input rows, then the horizontal triangular pass."""

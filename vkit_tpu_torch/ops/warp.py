@@ -1,37 +1,43 @@
-"""Backward-map bilinear remap with a constant border.
+"""Backward-map warp (remap) with a constant border.
 
-Port of the bilinear branch of vkit_tpu/ops/warp.py ``remap_f32``, batched
-over a leading sample axis.  Each of the four taps that falls outside the
-source reads the border value (cv2 BORDER_CONSTANT per-tap masking).
+Port of vkit_tpu/ops/warp.py.  ``remap_f32`` is the reference's
+``remap_f32`` batched over a leading sample axis: nearest or bilinear, and
+each of the four bilinear taps that falls outside the source reads the
+border value (cv2 BORDER_CONSTANT per-tap masking).
 ``torch.nn.functional.grid_sample`` pads only with zeros or the edge pixel,
-so the gather is written out.
+so the gather is written out.  ``remap``, ``remap_batch``, ``affine_maps``,
+``warp_affine`` and ``warp_perspective`` are the reference's single-image
+and batched forms on top of it; they run on the device of the image.
+``torch.round`` rounds half to even, as ``jnp.round`` does.
 
 The numpy host half (``remap_np``, ``affine_maps_np``, ``warp_affine_np``,
 ``affine_np_points``, ``solve_perspective``, ``solve_perspective_batch``,
-``rect_to_quad_mats``) is the reference's own code: WarpPlan and the
-per-element geometric distortions call it.
+``invert_homography``, ``rect_to_quad_mats``) is the reference's own code:
+WarpPlan and the per-element geometric distortions call it.
 """
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from .. import convert
+from .common import round_u8
 
-def remap_f32(images, map_y, map_x, border_value: float = 0.0):
-    """Bilinear backward warp of (N, H, W, C) by (N, H', W') float maps ->
-    (N, H', W', C) float32."""
+
+def remap_f32(images, map_y, map_x, border_value=0.0,
+              interpolation: str = 'bilinear'):
+    """Backward warp of (N, H, W, C) by (N, H', W') float maps ->
+    (N, H', W', C) float32.  ``border_value`` may be a scalar or a (C,)
+    vector."""
     images = images.to(torch.float32)
     n, height, width, channels = images.shape
     flat = images.reshape(n, height * width, channels)
-
-    y0f = torch.floor(map_y)
-    x0f = torch.floor(map_x)
-    wy = (map_y - y0f)[..., None]
-    wx = (map_x - x0f)[..., None]
-    y0 = y0f.to(torch.int64)
-    x0 = x0f.to(torch.int64)
-    border = torch.full((), border_value, dtype=torch.float32,
-                        device=images.device)
+    if np.ndim(border_value) == 0:  # a fill, no host-to-device copy
+        border = torch.full((channels,), float(border_value),
+                            dtype=torch.float32, device=images.device)
+    else:
+        border = torch.as_tensor(border_value, dtype=torch.float32).to(
+            images.device).broadcast_to((channels,))
 
     def tap(ys, xs):
         valid = (ys >= 0) & (ys < height) & (xs >= 0) & (xs < width)
@@ -40,6 +46,17 @@ def remap_f32(images, map_y, map_x, border_value: float = 0.0):
         vals = torch.gather(flat, 1, idx).reshape(*ys.shape, channels)
         return torch.where(valid[..., None], vals, border)
 
+    if interpolation == 'nearest':
+        return tap(torch.round(map_y).to(torch.int64),
+                   torch.round(map_x).to(torch.int64))
+    if interpolation != 'bilinear':
+        raise NotImplementedError(interpolation)
+    y0f = torch.floor(map_y)
+    x0f = torch.floor(map_x)
+    wy = (map_y - y0f)[..., None]
+    wx = (map_x - x0f)[..., None]
+    y0 = y0f.to(torch.int64)
+    x0 = x0f.to(torch.int64)
     v00 = tap(y0, x0)
     v01 = tap(y0, x0 + 1)
     v10 = tap(y0 + 1, x0)
@@ -52,12 +69,98 @@ def remap_f32(images, map_y, map_x, border_value: float = 0.0):
     )
 
 
+def remap(
+    image,
+    map_y,
+    map_x,
+    interpolation: str = 'bilinear',
+    border_value: float = 0.0,
+):
+    """Dtype-preserving remap (uint8 in -> uint8 out, rounded) of one
+    (H, W, C) / (H, W) image by (H', W') maps, on the image's device."""
+    maps = [convert.to_tensor(m, image.device, torch.float32)[None]
+            for m in (map_y, map_x)]
+    return remap_batch(image[None], *maps, interpolation, border_value)[0]
+
+
+def remap_batch(
+    images,
+    map_ys,
+    map_xs,
+    interpolation: str = 'bilinear',
+    border_value: float = 0.0,
+):
+    """remap over a leading batch dim: (N, H, W[, C]), (N, H', W').  uint8
+    rounds and saturates, any other dtype casts, as the reference's."""
+    had_c = images.dim() == 4
+    maps = [convert.to_tensor(m, images.device, torch.float32)
+            for m in (map_ys, map_xs)]
+    out = remap_f32(images if had_c else images[..., None], *maps,
+                    border_value, interpolation)
+    if not had_c:
+        out = out[..., 0]
+    return round_u8(out) if images.dtype == torch.uint8 else out.to(
+        images.dtype)
+
+
 def to_image_dtype(x, dtype):
     """float32 result -> ``dtype``: integer images round and clip to
     [0, 255] (the reference's uint8 rule), float images cast."""
     if not dtype.is_floating_point:
         return torch.clamp(torch.round(x), 0, 255).to(dtype)
     return x.to(dtype)
+
+
+# --------------------------------------------------------------------------
+# Matrix-driven warps (affine / perspective).
+# --------------------------------------------------------------------------
+
+
+def affine_maps(trans_mat, dst_shape: Tuple[int, int], device='cuda'):
+    """Backward maps for a *forward* 2x3 affine or 3x3 perspective matrix.
+
+    Mirrors cv2.warpAffine / warpPerspective semantics (the forward matrix
+    is inverted internally, in float32 as the reference does).
+    ``trans_mat`` may be a tensor (the maps are built on its device) or
+    numpy (the maps are built on ``device``, the CPU only when asked for);
+    returns (map_y, map_x) float32."""
+    if not isinstance(trans_mat, torch.Tensor):
+        trans_mat = convert.to_tensor(trans_mat,
+                                      convert.resolve_device(device))
+    trans_mat = trans_mat.to(torch.float32)
+    if tuple(trans_mat.shape) == (2, 3):
+        full = torch.cat([trans_mat, torch.tensor(
+            [[0.0, 0.0, 1.0]], device=trans_mat.device)], dim=0)
+    else:
+        assert tuple(trans_mat.shape) == (3, 3)
+        full = trans_mat
+    inv = torch.linalg.inv(full)
+
+    dst_h, dst_w = dst_shape
+    xs = torch.arange(dst_w, dtype=torch.float32, device=full.device)
+    ys = torch.arange(dst_h, dtype=torch.float32, device=full.device)
+    grid_y, grid_x = torch.meshgrid(ys, xs, indexing='ij')
+    ones = torch.ones_like(grid_x)
+    dst_pts = torch.stack([grid_x, grid_y, ones], dim=-1)  # (H, W, 3)
+    src = dst_pts @ inv.T
+    denom = src[..., 2]
+    denom = torch.where(torch.abs(denom) < 1e-12, 1.0, denom)
+    return src[..., 1] / denom, src[..., 0] / denom
+
+
+def warp_affine(
+    image,
+    trans_mat,
+    dst_shape: Tuple[int, int],
+    interpolation: str = 'bilinear',
+    border_value: float = 0.0,
+):
+    map_y, map_x = affine_maps(convert.to_tensor(trans_mat, image.device),
+                               dst_shape)
+    return remap(image, map_y, map_x, interpolation, border_value)
+
+
+warp_perspective = warp_affine  # Same path; 3x3 matrix selects perspective.
 
 
 # --------------------------------------------------------------------------
@@ -275,6 +378,10 @@ def solve_perspective_batch(src_quads: np.ndarray, dst_quads: np.ndarray) -> np.
             coeffs[idx], *_ = np.linalg.lstsq(a[idx], b[idx], rcond=None)
     out = np.concatenate([coeffs, np.ones((n, 1))], axis=1)
     return out.reshape(n, 3, 3)
+
+def invert_homography(mat: np.ndarray) -> np.ndarray:
+    return np.linalg.inv(mat)
+
 
 def rect_to_quad_mats(rects: np.ndarray, quads: np.ndarray) -> np.ndarray:
     """Closed-form homographies mapping axis-aligned rectangles onto

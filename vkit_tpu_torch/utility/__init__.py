@@ -13,4 +13,4 @@ from .opt import (
 from .pool import Pool, PoolConfig
 from .structure import dyn_structure, get_generic_classes, is_attrs_class, read_json_file
 from .type import PathType
-from .profiling import StepTimer
+from .profiling import StepTimer, device_trace
