@@ -14,7 +14,10 @@ Phases, one line each (plus detail lines):
      the host libraries the port's host layers need, the font, and the
      native geometry library; every module of vkit_tpu_torch is imported,
      and the phase fails if that loaded jax or any vkit_tpu module;
-  2. build: nvcc builds the CUDA kernels from vkit_tpu_torch/ops/csrc;
+  2. build: nvcc builds the CUDA kernels from vkit_tpu_torch/ops/csrc
+     (one process per source, all started together), and a detail line
+     gives ptxas's registers, shared memory and spills of each K3
+     instantiation (its -Xptxas -v output, kept with the build);
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      card (max abs difference), and its time beside the plain version's,
      one library call's (`library_ms`, where one PyTorch call computes the
@@ -24,8 +27,10 @@ Phases, one line each (plus detail lines):
      arguments of their first launch in one synth-640 batch (the page
      warp's), captured there with their launches per batch; K1 also at its
      largest launch of another shape in that batch (the region flatten's),
-     at starts that wrap mod 2048, and K3 at each rung of its tap ladder,
-     the last two for exactness only, and K3's library yardstick
+     at starts that wrap mod 2048, and K3 at each rung of its tap ladder
+     and at the shapes of K3_EDGE_CASES (with the source also one float
+     off 16-byte alignment), the last three for exactness only
+     (bit-exactness logged), and K3's library yardstick
      F.grid_sample on one-row images, which computes K3's function where
      both weighted taps lie in [0, taps) (K3_OUT_OF_BAND; the count of
      outputs out of band is logged).  K4 (row_shift_window), which no path
@@ -125,12 +130,15 @@ Phases, one line each (plus detail lines):
      counters zeroed just before and read just after (K3 must launch for
      camera and MLS, K1 for rotate), held to the same call on the CPU within
      1 LSB inside each sample's coverage eroded by 4 px, and timed (median
-     of 5 calls after 2 warm-ups); the camera call 5 times more, each
+     of 5 calls after 2 warm-ups), each case's largest launch timed with
+     its bound (K3 also at each stage size); the camera call 5 times
+     more, each
      under device_trace (busy time and share, as in phase 4, and the top
      device operations); then the reference's single-image ops at 640x640
      on the card against the CPU (warp_perspective once with a numpy
      matrix, whose maps must be built on the card), each within its
-     tolerance, with its ms.
+     tolerance, with its ms.  A detail line counts K3's launches over
+     phases 4-9 by (N, L, C, W, JP, taps).
 Then one JSON line of per-kernel results, the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Any failure raises (exit code != 0).
 `launches` in the JSON line sums the counted runs of phases 4, 6, 7, 8 and 9
@@ -139,6 +147,7 @@ batch are on phase 3's capture line.
 Parity with the CPU assumes TF32 off for matmuls and cuDNN, as set here.
 The script needs a CUDA card and the rest of the repository beside it.
 """
+import collections
 import importlib
 import importlib.metadata
 import importlib.util
@@ -184,6 +193,18 @@ PEAK_F32_PER_S = 67e12
 K3_OUT_OF_BAND = ('outputs with a weighted tap outside [0, taps): K3 masks '
                   'it, grid_sample reads it')
 K3_LIBRARY_TOL = 1e-4
+# K3's exactness cases beside the captured call, (N, L, C, W, JP, taps):
+# C * W % 4 != 0 with L = 13, one channel (8 lines an item), nine channels
+# (the runtime channel loop), the widest row, a line split into channel
+# chunks.  The captured call (2,560 items, several a persistent block)
+# runs each tap rung.
+K3_EDGE_CASES = (
+    (2, 13, 5, 641, 768, 64),
+    (3, 24, 1, 300, 256, 32),
+    (2, 16, 9, 640, 640, 128),
+    (2, 9, 3, 1664, 1664, 32),
+    (1, 8, 16, 1664, 384, 64),
+)
 # Share of a stacked region page's pixels that may differ between the card
 # and the CPU: the polygon test, the warped alpha and the coverage each
 # threshold a float32 value, so a last-bit difference flips a pixel on a
@@ -209,6 +230,29 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(log_text: str, kernel: str = 'banded_resample_kernel'):
+    """nvcc -Xptxas -v's registers / barriers / shared memory line and its
+    spill line for each instantiation of ``kernel`` (K3's template
+    argument: the channels unrolled, 0 for the runtime loop).  Returns
+    {channels: 'Used ... ; ... spill ...'}."""
+    found, current, spill = {}, None, ''
+    for line in log_text.splitlines():
+        entry = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?([A-Za-z0-9_]+)", line)
+        if entry:
+            args = re.search(kernel + r'ILi(\d+)E', entry.group(1))
+            current = int(args.group(1)) if args else None
+            continue
+        if current is None:
+            continue
+        if 'spill stores' in line:
+            spill = line.strip()
+        elif 'Used' in line and 'registers' in line:
+            found[current] = line.split(':', 1)[1].strip() + '; ' + spill
+            current, spill = None, ''
+    return found
 
 
 # ---------------------------------------------------------------------------
@@ -363,6 +407,28 @@ def record_calls(run, module, names):
         for name in names:
             setattr(module, name, originals[name])
     return calls
+
+
+def count_banded_shapes():
+    """Counts K3's launches on the card by (N, L, C, W, JP, taps) where
+    ops/warp_banded.py calls it.  Returns (the counter, a function that
+    puts the wrapper back)."""
+    from vkit_tpu_torch.ops import warp_banded
+
+    shapes = collections.Counter()
+    real = warp_banded.banded_line_resample
+
+    def counted(x, base, pos, taps, *args, **kwargs):
+        if x.is_cuda:
+            shapes[(*x.shape, pos.shape[-1], taps)] += 1
+        return real(x, base, pos, taps, *args, **kwargs)
+
+    warp_banded.banded_line_resample = counted
+
+    def restore():
+        warp_banded.banded_line_resample = real
+
+    return shapes, restore
 
 
 def capture_main_path_args(device, planner, seed: int = 400, batch: int = 8,
@@ -754,28 +820,65 @@ def kernel_phase(device, captured):
         f'{out_of_band} of {pos.numel()} (line, output) pairs out of band '
         f'({K3_OUT_OF_BAND}); border {border}')
     del library, close
-    # Exactness only: each rung of the tap ladder at random bases.
-    n, lines = xb.shape[:2]
-    jp = 768
-    groups = -(-lines // 8)
-    for rung in (32, 64, 128):
-        base_np = gen.integers(-500, 1281, (n, groups, jp // 128))
-        full = np.repeat(np.repeat(base_np, 8, 1)[:, :lines], 128, 2)
-        pos_np = (full + np.arange(jp) % 128
-                  + gen.uniform(-2, rung + 2, (n, lines, jp)))
-        base_r = torch.from_numpy(base_np.astype(np.int32)).to(device)
-        pos_r = torch.from_numpy(pos_np.astype(np.float32)).to(device)
-        err, _ = check_exact(
-            f'banded_line_resample taps={rung}',
-            lambda: K.banded_line_resample(xb, base_r, pos_r, rung, 255.0),
-            lambda: K.banded_line_resample_plain(xb, base_r, pos_r, rung,
-                                                 255.0),
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    res = results['banded_line_resample']
+
+    def exact_k3(label, x, base, pos, taps):
+        return check_exact(
+            label, lambda: K.banded_line_resample(x, base, pos, taps, 255.0),
+            lambda: K.banded_line_resample_plain(x, base, pos, taps, 255.0),
             tol=1e-3)
-        results['banded_line_resample']['max_abs_err'] = max(
-            results['banded_line_resample']['max_abs_err'], err)
-        log(f'    banded_line_resample taps={rung}: max_abs_err {err}')
+
+    # Exactness only: each rung of the tap ladder at random bases, then the
+    # edge shapes.
+    n, lines = xb.shape[:2]
+    for rung in (32, 64, 128):
+        _, base_r, pos_r = banded_random_case(gen, device, n, lines, 0, 0,
+                                              768, rung)
+        err, exact = exact_k3(f'banded_line_resample taps={rung}', xb,
+                              base_r, pos_r, rung)
+        res['max_abs_err'] = max(res['max_abs_err'], err)
+        log(f'    banded_line_resample taps={rung}: max_abs_err {err}, bit '
+            f'exact {exact}')
+    for n, lines, c, width, jp, rung in K3_EDGE_CASES:
+        x_e, base_e, pos_e = banded_random_case(gen, device, n, lines, c,
+                                                width, jp, rung)
+        # The source one float off 16-byte alignment: ragged heads and
+        # tails in every item.
+        x_off = torch.empty(x_e.numel() + 1, device=device)[1:].view(
+            x_e.shape)
+        x_off.copy_(x_e)
+        label = (f'banded_line_resample {(n, lines, c, width)} -> {jp}, '
+                 f'taps {rung}')
+        err, exact = exact_k3(label, x_e, base_e, pos_e, rung)
+        err_off, exact_off = exact_k3(label + ' (x off 16 bytes)', x_off,
+                                      base_e, pos_e, rung)
+        res['max_abs_err'] = max(res['max_abs_err'], err, err_off)
+        launch = K.banded_launch(n, lines, c, width, sms)
+        log(f'    {label}: max_abs_err {max(err, err_off)}, bit exact '
+            f'{exact and exact_off} (G {launch.lines_per_item}, '
+            f'{launch.chunks} channel chunks, {launch.items} items)')
     torch.cuda.empty_cache()
     return results
+
+
+def banded_random_case(gen, device, n: int, lines: int, channels: int,
+                       width: int, jp: int, taps: int):
+    """Random K3 inputs: a source of ``channels`` x ``width`` (None when 0),
+    bases in [-500, 1281) and positions up to 2 past either end of each
+    band, so some taps fall outside [0, taps) and some wrap mod 2048."""
+    import torch
+
+    groups = -(-lines // 8)
+    base_np = gen.integers(-500, 1281, (n, groups, jp // 128))
+    full = np.repeat(np.repeat(base_np, 8, 1)[:, :lines], 128, 2)
+    pos_np = (full + np.arange(jp) % 128
+              + gen.uniform(-2, taps + 2, (n, lines, jp)))
+    x = (torch.from_numpy(
+        gen.random((n, lines, channels, width), dtype=np.float32) * 255
+    ).to(device) if channels else None)
+    return (x, torch.from_numpy(base_np.astype(np.int32)).to(device),
+            torch.from_numpy(pos_np.astype(np.float32)).to(device))
 
 
 def log_kernel(tag: str, name: str, res, card: str):
@@ -2786,9 +2889,9 @@ def grid_phase(device, card: str):
         # The case's largest launch, timed with its bound.
         kernel_name, args, kwargs = max(
             res.pop('recorded'), key=lambda c: c[1][0].numel())
+        timed = compare_recorded(label, kernel_name, args, kwargs)
         log_kernel('9 kernel', f'{kernel_name}/{label} largest of '
-                   f'{res["launches"][kernel_name]}',
-                   compare_recorded(label, kernel_name, args, kwargs), card)
+                   f'{res["launches"][kernel_name]}', timed, card)
         del args, kwargs
         if repeat is None:
             repeat = call
@@ -2855,6 +2958,12 @@ def main() -> int:
     K.load_library()
     log(f'[2 build] {lib_path.name}: nvcc {K.BUILD_SECONDS} s, '
         f'load {time.perf_counter() - begin:.3f} s')
+    report = ptxas_report(K.build_log())
+    check(report, 'no ptxas report of banded_resample_kernel in the build '
+          'log')
+    log('[2 ptxas] banded_resample_kernel <channels unrolled, 0 for the '
+        'runtime loop>: ' + ' | '.join(
+            f'<{c}> {line}' for c, line in sorted(report.items())))
 
     # 3. Kernels against their plain versions, K1 and K3 at the arguments
     # of their first launch in a synth-640 batch.
@@ -2885,6 +2994,9 @@ def main() -> int:
         side = int(sys.argv[sys.argv.index('--pipeline-area') + 1])
         pipeline_phase(assets, side, card, with_pool=False, max_seconds=900)
         return 0
+
+    # Every K3 launch shape of phases 4-9, at the site the paths call.
+    k3_shapes, restore_k3 = count_banded_shapes()
 
     # 4. Main path.
     main_path(device, planner, seed=100)           # warm-up, not counted
@@ -3042,6 +3154,14 @@ def main() -> int:
     begin = time.perf_counter()
     grid_launches = grid_phase(device, card)
     log(f'[9 done] phase 9 in {time.perf_counter() - begin:.1f} s')
+    restore_k3()
+    unrolled = sorted(c for c in report if c)
+    log('[9 K3 shapes] banded_line_resample launches over phases 4-9 by '
+        '(N, L, C, W, JP, taps), warm-ups included: '
+        + ', '.join(f'{shape} x{count}'
+                    for shape, count in sorted(k3_shapes.items()))
+        + f'; channel counts {sorted({k[2] for k in k3_shapes})}, unrolled '
+        f'instantiations {unrolled}')
 
     by_path = {'serving': launches, 'training': train_launches,
                'chain': chain_launches, 'dense': dense['launches'],

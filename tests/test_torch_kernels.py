@@ -131,6 +131,48 @@ def _banded_case(seed, taps, n=2, l=12, c=3, w=300, jp=256):
     return x, base.astype(np.int32), pos.astype(np.float32)
 
 
+# (N, L, C, W, JP) of every K3 launch on the paths (chip_smoke.py's
+# phase-9 line of K3's shapes over phases 4-9: the page warp, the grid
+# warps, RandomDistortion, the 320-px checks), and the extremes: one and
+# sixteen channels, W of 1, 641 (C * W % 4 != 0) and 1664 (the window's
+# widest), L not a multiple of 8.
+BANDED_LAUNCH_SHAPES = [
+    (1, 320, 7, 320, 384),
+    (1, 384, 7, 320, 384),
+    (8, 320, 5, 320, 768),
+    (8, 320, 7, 320, 640),
+    (8, 640, 7, 320, 640),
+    (8, 640, 7, 640, 640),
+    (8, 768, 5, 320, 768),
+    (16, 640, 5, 640, 768),
+    (16, 768, 5, 640, 768),
+    (32, 640, 5, 640, 768),
+    (32, 640, 5, 640, 896),
+    (32, 768, 5, 640, 768),
+    (32, 896, 5, 640, 896),
+    (3, 13, 1, 1, 128),
+    (3, 13, 1, 641, 768),
+    (2, 21, 5, 641, 768),
+    (2, 13, 16, 1664, 1664),
+    (2, 800, 16, 641, 640),
+    (1, 7, 9, 1664, 256),
+    (4, 37, 3, 1664, 384),
+]
+# (N, L, C, W, JP, taps) for the card: unaligned C * W with L = 13, one and
+# nine channels, W = 1664 (split into channel chunks at 16 channels), and
+# enough items that every persistent block walks several, at each rung.
+BANDED_CUDA_CASES = [
+    (2, 13, 5, 641, 768, 64),
+    (3, 24, 1, 300, 256, 32),
+    (2, 16, 9, 640, 640, 128),
+    (2, 9, 3, 1664, 1664, 32),
+    (1, 8, 16, 1664, 384, 64),
+    (16, 800, 3, 640, 640, 32),
+    (16, 800, 3, 640, 640, 64),
+    (16, 800, 3, 640, 640, 128),
+]
+
+
 @pytest.mark.parametrize('seed', [0, 1])
 @pytest.mark.parametrize('border', [0.0, 0.5])
 def test_row_shift_window_slab_bit_exact(seed, border):
@@ -223,6 +265,46 @@ def test_banded_line_resample_matches_pallas(taps):
     # Two taps against the reference's full tap sum: the zero-weight taps
     # add exact zeros, so only XLA's FMA contraction of the blend differs.
     assert np.abs(ref - got).max() <= 1e-4
+
+
+@pytest.mark.parametrize('sms', [114, 132])
+@pytest.mark.parametrize('n,l,c,w,jp', BANDED_LAUNCH_SHAPES)
+def test_banded_launch_covers_every_line_once(n, l, c, w, jp, sms):
+    """K3's launch parameters on an H100 PCIe (114 SMs) and SXM (132):
+    shared memory within a block's 227 KB, G divides 8, the persistent grid
+    within the SMs' residency, and the items cover every (n, line, channel)
+    exactly once without an item crossing an 8-line base group."""
+    launch = K.banded_launch(n, l, c, w, sms=sms)
+    assert launch.smem_bytes <= K.SMEM_PER_BLOCK
+    assert launch.smem_bytes >= (K.K3_HEADER_BYTES
+                                 + 2 * 4 * launch.stage_floats)
+    assert 8 % launch.lines_per_item == 0
+    assert launch.stage_floats % 4 == 0
+    assert 1 <= launch.blocks_per_sm <= K.K3_BLOCKS_PER_SM
+    assert 1 <= launch.grid <= min(launch.items, sms * launch.blocks_per_sm)
+    seen = np.zeros((n, l, c), np.int64)
+    for item in range(launch.items):
+        i, l0, lines, c0, cn = K.banded_item(launch, l, c, item)
+        assert lines >= 1 and cn >= 1
+        assert lines == 1 or cn == c          # a source range is contiguous
+        assert l0 // 8 == (l0 + lines - 1) // 8
+        # The staged floats, up to 3 ahead for the 16-byte phase.
+        assert lines * cn * w + 3 <= launch.stage_floats
+        seen[i, l0:l0 + lines, c0:c0 + cn] += 1
+    assert (seen == 1).all()
+
+
+def test_banded_launch_uses_the_shared_memory_budget():
+    """A line that outgrows a stage is split into channel chunks; small
+    lines are grouped up to 8 to a stage."""
+    wide = K.banded_launch(2, 13, 16, 1664, sms=132)
+    assert wide.lines_per_item == 1 and wide.chunks > 1
+    assert 4 * wide.chunk * 1664 <= K.K3_STAGE_BYTES
+    narrow = K.banded_launch(2, 13, 1, 300, sms=132)
+    assert narrow.lines_per_item == 8 and narrow.chunks == 1
+    page = K.banded_launch(8, 640, 7, 640, sms=132)
+    assert (page.lines_per_item, page.chunks) == (2, 1)
+    assert page.grid == 132 * page.blocks_per_sm < page.items
 
 
 def test_plain_versions_do_not_count_launches():
@@ -346,3 +428,27 @@ def test_cuda_kernels_match_plain(cuda_device):
         ref = K.banded_line_resample_plain(x, base, pos, taps, 7.0)
         torch.cuda.synchronize()
         assert float((got - ref).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize('n,l,c,w,jp,taps', BANDED_CUDA_CASES)
+def test_cuda_banded_line_resample_cases(cuda_device, n, l, c, w, jp, taps):
+    """K3 equals the plain version within 1e-3 (bit for bit expected; the
+    test prints it, ``pytest -rP`` shows it), also with x and pos one float
+    off 16-byte alignment (a ragged head and tail in every item)."""
+    arrays = _banded_case(11, taps, n=n, l=l, c=c, w=w, jp=jp)
+    x, base, pos = (torch.from_numpy(a).to(cuda_device) for a in arrays)
+    ref = K.banded_line_resample_plain(x, base, pos, taps, 255.0)
+    x_off = torch.empty(x.numel() + 1, device=cuda_device)[1:].view(x.shape)
+    x_off.copy_(x)
+    pos_off = torch.empty(pos.numel() + 1, device=cuda_device)[1:].view(
+        pos.shape)
+    pos_off.copy_(pos)
+    exact = []
+    for xk, pk in ((x, pos), (x_off, pos_off)):
+        before = K.LAUNCHES['banded_line_resample']
+        got = K.banded_line_resample(xk, base, pk, taps, 255.0)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES['banded_line_resample'] == before + 1
+        assert float((got - ref).abs().max()) <= 1e-3
+        exact.append(bool(torch.equal(got, ref)))
+    print(f'bit_exact {exact}')

@@ -84,6 +84,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+
 namespace {
 
 constexpr int kWindow = 2048;
@@ -93,44 +95,6 @@ constexpr int kSlabThreads = 128;   // K1 / K4
 // 48 KB a block gets without opting in.
 constexpr int kStageBytes = 23 * 1024;
 constexpr int kHeaderBytes = 128;   // two mbarriers, two starts
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
-                                                      uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n"
-      :: "r"(smem_u32(bar)), "r"(parity) : "memory");
-}
-
-__device__ __forceinline__ void bulk_copy_g2s(float* dst, const float* src,
-                                              uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
-         "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
 
 // The lanes [lo, hi) of the 2048-lane window, starting at lane a, that hold
 // the row (W + out_w <= 2048, so the overlap is one interval).
@@ -188,14 +152,14 @@ __device__ void start_copies(const Slab& s, int item, int stage,
               &hi);
   // Shared memory read by the generic proxy in the previous use of this
   // stage is written by the async proxy next.
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  tma::fence_proxy_async();
   uint32_t total = 0;
   for (int cc = 0; cc < cn; ++cc) {
     int m0, m1;
     aligned_middle(lo, hi, row_phase(s, r, c0 + cc), &m0, &m1);
     total += (uint32_t)(m1 - m0) * 4u;
   }
-  mbar_arrive_expect_tx(&bars[stage], total);
+  tma::mbar_arrive_expect_tx(&bars[stage], total);
   for (int cc = 0; cc < cn; ++cc) {
     int m0, m1;
     aligned_middle(lo, hi, row_phase(s, r, c0 + cc), &m0, &m1);
@@ -203,7 +167,7 @@ __device__ void start_copies(const Slab& s, int item, int stage,
       const float* src =
           s.x + ((int64_t)r * s.channels + c0 + cc) * s.width + m0;
       float* dst = bufs + ((size_t)stage * s.chunk + cc) * s.region;
-      bulk_copy_g2s(dst, src, (uint32_t)(m1 - m0) * 4u, &bars[stage]);
+      tma::bulk_copy_g2s(dst, src, (uint32_t)(m1 - m0) * 4u, &bars[stage]);
     }
   }
 }
@@ -219,9 +183,9 @@ row_shift_window_slab_kernel(Slab s) {
   const int tid = threadIdx.x;
 
   if (tid == 0) {
-    mbar_init(&bars[0]);
-    mbar_init(&bars[1]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    tma::mbar_init(&bars[0]);
+    tma::mbar_init(&bars[1]);
+    tma::mbar_init_fence();
   }
   __syncthreads();
   int item = blockIdx.x;
@@ -233,7 +197,7 @@ row_shift_window_slab_kernel(Slab s) {
     // The other stage was drained at the end of the previous iteration.
     if (tid == 0 && next < items)
       start_copies(s, next, stage ^ 1, bufs, bars, s_start);
-    mbar_wait(&bars[stage], (uint32_t)(it >> 1) & 1u);
+    tma::mbar_wait(&bars[stage], (uint32_t)(it >> 1) & 1u);
 
     const int r = item / s.groups;
     const int c0 = (item - r * s.groups) * s.chunk;

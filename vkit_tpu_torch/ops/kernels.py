@@ -19,9 +19,11 @@ banded two-pass warp (ops/warp_banded.py) launches ``banded_line_resample``
 once per pass for smooth fields.  ``row_shift_window`` (K1 with one channel)
 has no caller on a path, in the JAX package or here.
 
-The sources build at first use with ``nvcc`` into one shared library with a
-plain C interface under ``ops/build/`` (named by a hash of the sources and
-flags, so an edit rebuilds) and load through ctypes.  Nothing builds or
+The sources build at first use with ``nvcc`` (one process per source, all
+started together, then one link) into one shared library with a plain C
+interface under ``ops/build/`` (named by a hash of the sources and flags,
+so an edit rebuilds; nvcc's ``-Xptxas -v`` report is kept beside it, see
+``build_log``) and load through ctypes.  Nothing builds or
 loads while this module is imported: CPU-only installs import it freely.
 
 Every wrapper checks device, dtype, shape, contiguity and the bounds the
@@ -33,6 +35,7 @@ JAX wrapper asserts, then:
 ``LAUNCHES`` counts kernel launches per wrapper (plain calls do not count).
 """
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -40,6 +43,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -49,9 +53,10 @@ _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / 'csrc'
 _BUILD = _HERE / 'build'
 _SOURCES = ('row_shift.cu', 'banded_resample.cu')
+_HEADERS = ('tma.cuh',)
 _NVCC_FLAGS = (
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-    '-shared', '-Xcompiler', '-fPIC',
+    '-Xcompiler', '-fPIC', '-Xptxas', '-v',
 )
 
 # The TPU kernels' window: rows are rolled inside 2048 lanes.
@@ -91,25 +96,47 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256()
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         digest.update((_CSRC / name).read_bytes())
     digest.update(' '.join(_NVCC_FLAGS).encode())
     return _BUILD / f'libvkit_kernels_{digest.hexdigest()[:16]}.so'
 
 
+def build_log() -> str:
+    """nvcc's output for the current library (``-Xptxas -v``: registers,
+    shared memory and spills of each kernel), kept beside it at build."""
+    path = library_path().with_suffix('.log')
+    return path.read_text() if path.exists() else ''
+
+
 def _build(target: Path):
+    """One nvcc per source, all started together, then one link."""
     global BUILD_SECONDS
     _BUILD.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f'.{os.getpid()}.tmp')
-    cmd = [_nvcc(), *_NVCC_FLAGS, '-o', str(tmp),
-           *[str(_CSRC / name) for name in _SOURCES]]
+    objects = [tmp.with_suffix(f'.{Path(name).stem}.o') for name in _SOURCES]
     begin = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise DeviceError(
-            f'nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}'
-        )
-    os.replace(tmp, target)
+    procs = [
+        subprocess.Popen(
+            [_nvcc(), *_NVCC_FLAGS, '-c', '-o', str(obj), str(_CSRC / name)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, obj in zip(_SOURCES, objects)
+    ]
+    log = ''.join(f'== {name}\n{proc.communicate()[0]}'
+                  for name, proc in zip(_SOURCES, procs))
+    try:
+        if any(proc.returncode for proc in procs):
+            raise DeviceError(f'nvcc failed:\n{log}')
+        link = subprocess.run(
+            [_nvcc(), '-shared', '-o', str(tmp), *map(str, objects)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode:
+            raise DeviceError(f'nvcc link failed:\n{link.stdout}')
+        target.with_suffix('.log').write_text(log)
+        os.replace(tmp, target)
+    finally:
+        for path in (*objects, tmp):
+            path.unlink(missing_ok=True)
     BUILD_SECONDS = time.perf_counter() - begin
 
 
@@ -136,7 +163,8 @@ def load_library() -> ctypes.CDLL:
         lib.vk_row_shift.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
         lib.vk_row_shift.restype = i32
         lib.vk_banded_line_resample.argtypes = [
-            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, f32, ptr,
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, f32,
+            i32, i32, i32, i32, i32, ptr,
         ]
         lib.vk_banded_line_resample.restype = i32
         lib.vk_row_shift_window.argtypes = [
@@ -358,6 +386,76 @@ def banded_line_resample_plain(x, base, pos, taps: int,
     return w0[:, :, None, :] * v0 + w1[:, :, None, :] * v1
 
 
+# K3's launch: 256 threads a block, at most 4 blocks an SM (its
+# __launch_bounds__), two stages of at most ~36 KB each.
+K3_BLOCKS_PER_SM = 4
+K3_STAGE_BYTES = 36 * 1024
+K3_HEADER_BYTES = 128
+# Hopper's shared memory: the most a block may opt in to (227 KB) and an
+# SM's (228 KB, of which each resident block also takes 1 KB).
+SMEM_PER_BLOCK = 232448
+SMEM_PER_SM = 233472
+
+
+class BandedLaunch(NamedTuple):
+    lines_per_item: int   # G: lines of one 8-line base group per item
+    chunk: int            # channels per item
+    chunks: int
+    items: int            # N * ceil(L / G) * chunks
+    stage_floats: int     # floats of one stage, a multiple of 4
+    smem_bytes: int       # dynamic shared memory of a block
+    blocks_per_sm: int
+    grid: int             # persistent blocks
+
+
+@functools.lru_cache(maxsize=256)
+def banded_launch(n: int, lines: int, channels: int, width: int, sms: int):
+    """K3's launch parameters for x (n, lines, channels, width) on a card
+    with ``sms`` SMs: the most lines per item (1, 2, 4 or 8, so an item
+    never crosses an 8-line base group) whose source fits a stage of
+    K3_STAGE_BYTES; a line that does not fit is split into channel chunks
+    that do.  A stage holds the item's floats at their 16-byte phase (up
+    to 3 floats ahead)."""
+    line_bytes = 4 * channels * width
+    if line_bytes <= K3_STAGE_BYTES:
+        lines_per_item = max(g for g in (1, 2, 4, 8)
+                             if g * line_bytes <= K3_STAGE_BYTES)
+        chunk = channels
+    else:
+        lines_per_item = 1
+        chunk = max(1, K3_STAGE_BYTES // (4 * width))
+    chunks = -(-channels // chunk)
+    items = n * -(-lines // lines_per_item) * chunks
+    stage_floats = -(-(lines_per_item * chunk * width + 3) // 4) * 4
+    smem_bytes = K3_HEADER_BYTES + 2 * 4 * stage_floats
+    if smem_bytes > SMEM_PER_BLOCK:
+        raise ValueError(f'K3 stage of {stage_floats} floats exceeds shared '
+                         'memory')
+    blocks_per_sm = min(K3_BLOCKS_PER_SM, SMEM_PER_SM // (smem_bytes + 1024))
+    grid = max(1, min(items, blocks_per_sm * sms))
+    if items + grid >= 2**31 or n * lines >= 2**31:
+        raise ValueError(f'{items} K3 items exceed int32')
+    return BandedLaunch(lines_per_item, chunk, chunks, items, stage_floats,
+                        smem_bytes, blocks_per_sm, grid)
+
+
+def banded_item(launch: BandedLaunch, lines: int, channels: int, item: int):
+    """(n, first line, lines, first channel, channels) of K3's work item
+    ``item``: the kernel's decompose() (csrc/banded_resample.cu)."""
+    per_sample = -(-lines // launch.lines_per_item) * launch.chunks
+    n, rest = divmod(item, per_sample)
+    group, chunk = divmod(rest, launch.chunks)
+    l0 = group * launch.lines_per_item
+    c0 = chunk * launch.chunk
+    return (n, l0, min(launch.lines_per_item, lines - l0), c0,
+            min(launch.chunk, channels - c0))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def banded_line_resample(x, base, pos, taps: int,
                          border_value: float = 0.0):
     """``out[n, l, c, j] = interp(x[n, l, c, :], at=pos[n, l, j])``.
@@ -388,10 +486,13 @@ def banded_line_resample(x, base, pos, taps: int,
     out = torch.empty((n, l, c, jp), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
+    launch = banded_launch(n, l, c, in_width, _sm_count(x.device.index))
     lib = load_library()
     code = lib.vk_banded_line_resample(
         _ptr(x), _ptr(base), _ptr(pos), _ptr(out), n, l, c, in_width, jp,
-        groups, taps, float(border_value), _stream(),
+        groups, taps, float(border_value), launch.lines_per_item,
+        launch.chunk, launch.stage_floats, launch.smem_bytes, launch.grid,
+        _stream(),
     )
     _check_launch('banded_line_resample', code)
     return out
