@@ -1,0 +1,9 @@
+"""Percent of the traced window in which the device was idle while the
+host planned the warp: the innermost program span was ``plan_warp.route``,
+``.nodes`` or ``.band_plan``."""
+from cardbench import program_spans
+
+
+def read(run):
+    return program_spans.idle_share(run, program_spans.last_recording(),
+                                    program_spans.PLANNING)

@@ -65,6 +65,7 @@ from ..ops.warp_mxu import (
     plan_dense_warp_from_positions,
     quadrant_reduce_mats,
 )
+from ..utility import profiling
 from .distortion.photometric.base import OutOfBoundBehavior
 from .distortion.photometric.blur import (
     build_glass_blur_permutation,
@@ -610,94 +611,109 @@ def _mean_pool2(x):
 
 
 def _coarse_mxu_warp(images, nodes, src_shape, canvas, border_value,
-                     return_maps: bool, content_boxes=None):
+                     return_maps: bool, content_boxes=None,
+                     samples: Optional[int] = None):
     """Banded two-pass warp from node maps; samples the decomposition
     rejects run the 2x-downscale tail or the gather program as a
     sub-batch and overwrite their rows.  Returns None only when every
-    sample rejects."""
+    sample rejects.  ``samples``: how many leading rows are samples of
+    the caller's batch (the rest pad a bucket); only those count on the
+    route counters (all rows by default)."""
+    span, count = profiling.span, profiling.count
     coarse_y, coarse_x, ys, xs = nodes
     n = len(coarse_y)
+    counted = n if samples is None else samples
     device = images.device
-    planned = plan_banded_warp(
-        coarse_y, coarse_x, ys, xs, src_shape, canvas,
-        content_boxes=content_boxes,
-    )
+    with span('plan_warp.band_plan'):
+        planned = plan_banded_warp(
+            coarse_y, coarse_x, ys, xs, src_shape, canvas,
+            content_boxes=content_boxes,
+        )
     if planned is None:
         return None
     plan, taps, rejects, flips, needs = planned
 
     orig_dtype = images.dtype
-    x = images.to(torch.float32)
-
     reject_set = set(int(r) for r in rejects)
     acc = np.asarray(
         [i for i in range(n) if i not in reject_set], dtype=np.int64
     )
     groups = [(acc, _quantize_taps(int(needs[acc].max())))] \
         if len(acc) else []
+    count('plan_warp.samples.banded', int(np.count_nonzero(acc < counted)))
 
-    if len(groups) == 1 and len(groups[0][0]) == n:
-        warped = apply_banded_warp(
-            x, convert.banded_warp_plan(plan, device), canvas, groups[0][1],
-            flips=flips, border_value=border_value,
-        )
-    else:
-        warped = None
-        for pos, (gidx, gtaps) in enumerate(groups):
-            gpad = _bucket_pad(gidx, n)
-            warped = _banded_group_scatter(
-                warped, x, gpad,
-                convert.banded_warp_plan(slice_banded_plan(plan, gpad),
-                                         device),
-                flips[0][gpad], flips[1][gpad],
-                tuple(canvas), gtaps, border_value, pos == 0,
+    with span('plan_warp.enqueue'):
+        x = images.to(torch.float32)
+        if len(groups) == 1 and len(groups[0][0]) == n:
+            warped = apply_banded_warp(
+                x, convert.banded_warp_plan(plan, device), canvas,
+                groups[0][1], flips=flips, border_value=border_value,
             )
+        else:
+            warped = None
+            for pos, (gidx, gtaps) in enumerate(groups):
+                gpad = _bucket_pad(gidx, n)
+                warped = _banded_group_scatter(
+                    warped, x, gpad,
+                    convert.banded_warp_plan(slice_banded_plan(plan, gpad),
+                                             device),
+                    flips[0][gpad], flips[1][gpad],
+                    tuple(canvas), gtaps, border_value, pos == 0,
+                )
     if len(rejects):
         ridx = _bucket_pad(rejects, n, ladder=(8, 16))
+        rejected = int(np.count_nonzero(np.asarray(rejects) < counted))
         done = False
         h2, w2 = src_shape[0] // 2, src_shape[1] // 2
         if src_shape[0] % 2 == 0 and src_shape[1] % 2 == 0:
             # 2x-downscale tail for extreme zooms: a mean-pool prefilter
             # halves every slope and the halved field re-plans under the
             # tap ladder (half-pixel centers: s -> 0.5 * s - 0.25).
-            planned2 = plan_banded_warp(
-                coarse_y[ridx] * 0.5 - 0.25, coarse_x[ridx] * 0.5 - 0.25,
-                ys, xs, (h2, w2), canvas,
-                content_boxes=(None if content_boxes is None
-                               else content_boxes[ridx]),
-            )
+            with span('plan_warp.band_plan'):
+                planned2 = plan_banded_warp(
+                    coarse_y[ridx] * 0.5 - 0.25,
+                    coarse_x[ridx] * 0.5 - 0.25,
+                    ys, xs, (h2, w2), canvas,
+                    content_boxes=(None if content_boxes is None
+                                   else content_boxes[ridx]),
+                )
             if planned2 is not None and len(planned2[2]) == 0:
                 plan2, taps2, _, flips2, _ = planned2
-                sub_half = _mean_pool2(
-                    x[torch.as_tensor(ridx, device=device)]
-                )
-                res = apply_banded_warp(
-                    sub_half, convert.banded_warp_plan(plan2, device),
-                    canvas, taps2, flips=flips2, border_value=border_value,
-                )
-                warped = _scatter_samples(warped, ridx, res)
+                with span('plan_warp.enqueue'):
+                    sub_half = _mean_pool2(
+                        x[torch.as_tensor(ridx, device=device)]
+                    )
+                    res = apply_banded_warp(
+                        sub_half, convert.banded_warp_plan(plan2, device),
+                        canvas, taps2, flips=flips2,
+                        border_value=border_value,
+                    )
+                    warped = _scatter_samples(warped, ridx, res)
+                count('plan_warp.samples.half', rejected)
                 done = True
         if not done:
             # Gather fallback (fold-overs the half-res plan still rejects).
-            sub = x[torch.as_tensor(ridx, device=device)]
-            sub_nodes = (coarse_y[ridx], coarse_x[ridx], ys, xs)
-            res, _ = _coarse_gather_warp(
-                sub, [None] * len(ridx), None, canvas, border_value,
-                nodes=sub_nodes,
+            with span('plan_warp.enqueue'):
+                sub = x[torch.as_tensor(ridx, device=device)]
+                sub_nodes = (coarse_y[ridx], coarse_x[ridx], ys, xs)
+                res, _ = _coarse_gather_warp(
+                    sub, [None] * len(ridx), None, canvas, border_value,
+                    nodes=sub_nodes,
+                )
+                warped = _scatter_samples(warped, ridx, res)
+            count('plan_warp.samples.gather', rejected)
+
+    with span('plan_warp.enqueue'):
+        warped = to_image_dtype(warped, orig_dtype)
+        dev_maps = None
+        if return_maps:
+            h_max, w_max = canvas
+            dev_maps = _upsample_node_maps(
+                convert.to_tensor(coarse_y, device, torch.float32),
+                convert.to_tensor(coarse_x, device, torch.float32),
+                _interp_weights(h_max, ys, device),
+                _interp_weights(w_max, xs, device),
             )
-            warped = _scatter_samples(warped, ridx, res)
-
-    warped = to_image_dtype(warped, orig_dtype)
-
-    dev_maps = None
-    if return_maps:
-        h_max, w_max = canvas
-        dev_maps = _upsample_node_maps(
-            convert.to_tensor(coarse_y, device, torch.float32),
-            convert.to_tensor(coarse_x, device, torch.float32),
-            _interp_weights(h_max, ys, device),
-            _interp_weights(w_max, xs, device),
-        )
     return warped, dev_maps
 
 
@@ -825,6 +841,16 @@ def batched_plan_warp(
     None when every sample ran the affine route.  Pixels outside a sample's
     coverage are undefined, as in the reference: gate by the active mask.
     ``taps_max`` only applies to the dense mode.
+
+    Modes ``auto`` and ``gather`` record program spans
+    (``utility/profiling.py``): ``plan_warp`` around the call and in it
+    ``plan_warp.route`` (partition, quadrant reduction, bucket pads,
+    content boxes, affine planning), ``plan_warp.nodes`` (each coarse-node
+    build), ``plan_warp.band_plan`` (each banded plan, the tail's re-plan
+    included) and ``plan_warp.enqueue`` (each stretch that enqueues device
+    work); and the counters ``plan_warp.samples.affine``, ``.banded``,
+    ``.half`` and ``.gather``, the samples each route served (they sum to
+    N).  Mode ``dense`` records none.
     """
     if mode not in ('auto', 'gather', 'dense'):
         raise ValueError(f'unknown mode {mode!r}')
@@ -832,62 +858,87 @@ def batched_plan_warp(
         device = images.device
     if device is None:
         raise ValueError('device is required for a non-tensor batch')
-    images = convert.to_tensor(images, convert.resolve_device(device))
+    device = convert.resolve_device(device)
+    if mode == 'dense':
+        images = convert.to_tensor(images, device)
+        shapes, canvas = _batch_canvas(plans, images, canvas_shape)
+        return _dense_plan_warp(plans, images, shapes, canvas, border_value,
+                                taps_max, return_maps)
+    with profiling.span('plan_warp'):
+        with profiling.span('plan_warp.enqueue'):
+            images = convert.to_tensor(images, device)
+        shapes, canvas = _batch_canvas(plans, images, canvas_shape)
+        return _routed_plan_warp(plans, images, shapes, canvas, border_value,
+                                 return_maps, mode)
 
-    n, h_in, w_in = images.shape[:3]
+
+def _batch_canvas(plans, images, canvas_shape):
+    """Each plan's output shape, and the canvas that holds them all and
+    at least ``canvas_shape``."""
+    n = images.shape[0]
     if len(plans) != n:
         raise ValueError(f'{len(plans)} plans for a batch of {n}')
-
     shapes = [plan.dst_shape for plan in plans]
     h_max = max(s[0] for s in shapes)
     w_max = max(s[1] for s in shapes)
     if canvas_shape is not None:
         h_max = max(h_max, canvas_shape[0])
         w_max = max(w_max, canvas_shape[1])
+    return shapes, (h_max, w_max)
+
+
+def _routed_plan_warp(plans, images, shapes, canvas, border_value,
+                      return_maps, mode):
+    """``batched_plan_warp`` in modes ``auto`` and ``gather``."""
+    span, count = profiling.span, profiling.count
+    n, h_in, w_in = images.shape[:3]
+    h_max, w_max = canvas
 
     # Per-sample partition: affine plans run the two-shear program,
     # non-affine plans (lattice fields, perspective skews) the banded one.
-    aff_sel = np.zeros(n, dtype=bool)
-    aff_mats = np.tile(np.eye(3, dtype=np.float64), (n, 1, 1))
-    aff_quads = np.zeros(n, dtype=np.int8)
-    if mode == 'auto':
-        for i, plan in enumerate(plans):
-            if plan.is_lattice:
-                continue
-            mat3 = np.eye(3, dtype=np.float64)
-            if plan.matrix is not None:
-                m = np.asarray(plan.matrix, dtype=np.float64)
-                mat3[:m.shape[0]] = m
-            if np.abs(mat3[2, :2]).max() > 1e-9:
-                continue  # perspective (skew_hori/vert) -> banded
-            aff_sel[i] = True
-            aff_mats[i] = mat3
-        if aff_sel.any():
-            quads, reduced = quadrant_reduce_mats(
-                aff_mats[aff_sel], (h_in, w_in)
-            )
-            # Residual conditioning check (extreme anisotropic zoom-in).
-            cond = np.abs(np.linalg.inv(reduced)[:, 0, 0]) > 0.18
-            sel_idx = np.flatnonzero(aff_sel)
-            aff_sel[sel_idx[~cond]] = False
-            keep = np.flatnonzero(cond)
-            aff_quads[sel_idx[keep]] = quads[keep]
-            aff_mats[sel_idx[keep]] = reduced[keep]
+    with span('plan_warp.route'):
+        aff_sel = np.zeros(n, dtype=bool)
+        aff_mats = np.tile(np.eye(3, dtype=np.float64), (n, 1, 1))
+        aff_quads = np.zeros(n, dtype=np.int8)
+        if mode == 'auto':
+            for i, plan in enumerate(plans):
+                if plan.is_lattice:
+                    continue
+                mat3 = np.eye(3, dtype=np.float64)
+                if plan.matrix is not None:
+                    m = np.asarray(plan.matrix, dtype=np.float64)
+                    mat3[:m.shape[0]] = m
+                if np.abs(mat3[2, :2]).max() > 1e-9:
+                    continue  # perspective (skew_hori/vert) -> banded
+                aff_sel[i] = True
+                aff_mats[i] = mat3
+            if aff_sel.any():
+                quads, reduced = quadrant_reduce_mats(
+                    aff_mats[aff_sel], (h_in, w_in)
+                )
+                # Residual conditioning check (extreme anisotropic
+                # zoom-in).
+                cond = np.abs(np.linalg.inv(reduced)[:, 0, 0]) > 0.18
+                sel_idx = np.flatnonzero(aff_sel)
+                aff_sel[sel_idx[~cond]] = False
+                keep = np.flatnonzero(cond)
+                aff_quads[sel_idx[keep]] = quads[keep]
+                aff_mats[sel_idx[keep]] = reduced[keep]
 
-    aplan = None
-    if mode == 'auto' and aff_sel.any():
-        aff_idx = np.flatnonzero(aff_sel)
-        aff_idx_p = _bucket_pad(aff_idx, n, ladder=(8, n))
-        try:
-            aplan, astatics = plan_affine_warp(
-                aff_mats[aff_idx_p], (h_in, w_in), (h_max, w_max),
-                canonical=True,
-            )
-        except AssertionError:
-            # Span exceeds every shift kernel (huge canvases): the whole
-            # batch takes the banded/gather routing.
-            aplan = None
-            aff_sel[:] = False
+        aplan = None
+        if mode == 'auto' and aff_sel.any():
+            aff_idx = np.flatnonzero(aff_sel)
+            aff_idx_p = _bucket_pad(aff_idx, n, ladder=(8, n))
+            try:
+                aplan, astatics = plan_affine_warp(
+                    aff_mats[aff_idx_p], (h_in, w_in), (h_max, w_max),
+                    canonical=True,
+                )
+            except AssertionError:
+                # Span exceeds every shift kernel (huge canvases): the
+                # whole batch takes the banded/gather routing.
+                aplan = None
+                aff_sel[:] = False
     if mode == 'auto' and aff_sel.any() and aplan is not None:
         coverages = LazyCoverages(plans)
         quads_p = aff_quads[aff_idx_p]
@@ -895,84 +946,96 @@ def batched_plan_warp(
             len(aff_idx_p) == n and aff_sel.all()
             and np.array_equal(aff_idx_p, np.arange(n))
         )
-        wa = _affine_sub_warp(
-            images, aff_idx_p, quads_p,
-            convert.affine_warp_plan(aplan, images.device), astatics,
-            border_value, not direct, not (quads_p == 0).all(),
-        )
+        with span('plan_warp.enqueue'):
+            wa = _affine_sub_warp(
+                images, aff_idx_p, quads_p,
+                convert.affine_warp_plan(aplan, images.device), astatics,
+                border_value, not direct, not (quads_p == 0).all(),
+            )
+        count('plan_warp.samples.affine', len(aff_idx))
         if aff_sel.all():
             if return_maps:
                 return wa, shapes, coverages, None
             return wa, shapes, coverages
 
         # Mixed batch: banded sub-program on the rest, scatter-merge.
-        rest_idx = np.flatnonzero(~aff_sel)
-        rest_idx_p = _bucket_pad(rest_idx, n)
-        pad_map = np.concatenate([
-            np.arange(len(rest_idx)),
-            np.zeros(len(rest_idx_p) - len(rest_idx), dtype=np.int64),
-        ])
+        with span('plan_warp.route'):
+            rest_idx = np.flatnonzero(~aff_sel)
+            rest_idx_p = _bucket_pad(rest_idx, n)
+            pad_map = np.concatenate([
+                np.arange(len(rest_idx)),
+                np.zeros(len(rest_idx_p) - len(rest_idx), dtype=np.int64),
+            ])
+            boxes = _content_boxes(plans, rest_idx)[pad_map]
         nodes_all = None
-        if return_maps:
-            nodes_all = _build_coarse_nodes(
-                list(plans), shapes, (h_max, w_max)
-            )
-            cy, cx, nys, nxs = nodes_all
-            rest_nodes = (cy[rest_idx_p], cx[rest_idx_p], nys, nxs)
-        else:
-            rest_plans_u = [plans[i] for i in rest_idx]
-            cy, cx, nys, nxs = _build_coarse_nodes(
-                rest_plans_u, [p.dst_shape for p in rest_plans_u],
-                (h_max, w_max),
-            )
-            rest_nodes = (cy[pad_map], cx[pad_map], nys, nxs)
-        boxes = _content_boxes(plans, rest_idx)[pad_map]
-        sub_r = images[torch.as_tensor(rest_idx_p, device=images.device)]
+        with span('plan_warp.nodes'):
+            if return_maps:
+                nodes_all = _build_coarse_nodes(
+                    list(plans), shapes, (h_max, w_max)
+                )
+                cy, cx, nys, nxs = nodes_all
+                rest_nodes = (cy[rest_idx_p], cx[rest_idx_p], nys, nxs)
+            else:
+                rest_plans_u = [plans[i] for i in rest_idx]
+                cy, cx, nys, nxs = _build_coarse_nodes(
+                    rest_plans_u, [p.dst_shape for p in rest_plans_u],
+                    (h_max, w_max),
+                )
+                rest_nodes = (cy[pad_map], cx[pad_map], nys, nxs)
+        with span('plan_warp.enqueue'):
+            sub_r = images[torch.as_tensor(rest_idx_p, device=images.device)]
         result = _coarse_mxu_warp(
             sub_r, rest_nodes, (h_in, w_in), (h_max, w_max),
             border_value, return_maps=False, content_boxes=boxes,
+            samples=len(rest_idx),
         )
         if result is not None:
             wr = result[0]
         else:
-            wr, _ = _coarse_gather_warp(
-                sub_r, [None] * len(rest_idx_p), None, (h_max, w_max),
-                border_value, nodes=rest_nodes,
-            )
-        out = _merge_subbatches(aff_idx_p, wa, rest_idx_p, wr, n)
+            with span('plan_warp.enqueue'):
+                wr, _ = _coarse_gather_warp(
+                    sub_r, [None] * len(rest_idx_p), None, (h_max, w_max),
+                    border_value, nodes=rest_nodes,
+                )
+            count('plan_warp.samples.gather', len(rest_idx))
+        with span('plan_warp.enqueue'):
+            out = _merge_subbatches(aff_idx_p, wa, rest_idx_p, wr, n)
+            if return_maps:
+                cy, cx, nys, nxs = nodes_all
+                dev_maps = _upsample_node_maps(
+                    convert.to_tensor(cy, images.device, torch.float32),
+                    convert.to_tensor(cx, images.device, torch.float32),
+                    _interp_weights(h_max, nys, images.device),
+                    _interp_weights(w_max, nxs, images.device),
+                )
         if return_maps:
-            cy, cx, nys, nxs = nodes_all
-            dev_maps = _upsample_node_maps(
-                convert.to_tensor(cy, images.device, torch.float32),
-                convert.to_tensor(cx, images.device, torch.float32),
-                _interp_weights(h_max, nys, images.device),
-                _interp_weights(w_max, nxs, images.device),
-            )
             return out, shapes, coverages, dev_maps
         return out, shapes, coverages
-
-    if mode == 'dense':
-        return _dense_plan_warp(plans, images, shapes, (h_max, w_max),
-                                border_value, taps_max, return_maps)
 
     # Coarse-node paths: lattice maps evaluated at the nodes only, matrix
     # and nop maps analytically; coverages materialize on access.
     map_list = list(plans)
     coverages = LazyCoverages(plans)
-    nodes = _build_coarse_nodes(map_list, shapes, (h_max, w_max))
+    with span('plan_warp.nodes'):
+        nodes = _build_coarse_nodes(map_list, shapes, (h_max, w_max))
     if mode != 'gather':
+        with span('plan_warp.route'):
+            boxes = _content_boxes(plans, range(n))
         result = _coarse_mxu_warp(
             images, nodes, (h_in, w_in), (h_max, w_max), border_value,
-            return_maps, content_boxes=_content_boxes(plans, range(n)),
+            return_maps, content_boxes=boxes,
         )
         if result is not None:
             warped, dev_maps = result
             if return_maps:
                 return warped, shapes, coverages, dev_maps
             return warped, shapes, coverages
-    warped, dev_maps = _coarse_gather_warp(
-        images, map_list, shapes, (h_max, w_max), border_value, nodes=nodes,
-    )
+    with span('plan_warp.enqueue'):
+        warped, dev_maps = _coarse_gather_warp(
+            images, map_list, shapes, (h_max, w_max), border_value,
+            nodes=nodes,
+        )
+    count('plan_warp.samples.gather', n)
     if return_maps:
         return warped, shapes, coverages, dev_maps
     return warped, shapes, coverages
