@@ -423,6 +423,9 @@ PORTED = {
         # caller asks for the CPU (the port's batched_plan_warp demands a
         # device for one).
         'batched_grid_warp',
+        # The lattice node maps of a batch come from one native pass
+        # (native/node_maps.cpp) with the same numbers, and are counted.
+        '_build_coarse_nodes', 'lattice_node_maps',
     },
     'mechanism/batched_random.py': {'batch_random_distort',
                                     'batch_random_geometric_distort'},

@@ -24,6 +24,7 @@ SIDE = 128
 CHILDREN = {'plan_warp.route', 'plan_warp.nodes', 'plan_warp.band_plan',
             'plan_warp.enqueue'}
 ROUTES = ('affine', 'banded', 'half', 'gather')
+NODE_COUNTERS = ('native', 'fullres')
 
 
 def test_off_path_records_nothing():
@@ -252,7 +253,13 @@ def test_plan_warp_spans_and_route_counters(name):
               for r in ROUTES}
     assert served == {r: routes.get(r, 0) for r in ROUTES}
     assert sum(served.values()) == len(plans)
-    assert set(rec.counters) <= {f'plan_warp.samples.{r}' for r in ROUTES}
+    # Every lattice sample's node maps come from the native node pass.
+    nodes = {k: rec.counters.get(f'plan_warp.nodes.{k}', 0)
+             for k in NODE_COUNTERS}
+    assert nodes == dict(native=len(cameras), fullres=0)
+    assert set(rec.counters) <= (
+        {f'plan_warp.samples.{r}' for r in ROUTES}
+        | {f'plan_warp.nodes.{k}' for k in NODE_COUNTERS})
 
 
 def test_dense_mode_records_nothing():

@@ -21,7 +21,9 @@ one geometric distortion per sample on the host and warps through it.
 The host side (``plan_backward_maps``,
 ``_build_coarse_nodes``, ``_bucket_pad``, ``LazyCoverages``, the affine /
 banded / gather routing, the plans) is the reference's own code, so both
-packages send every sample down the same route.  Scatters write in place
+packages send every sample down the same route; the lattice node maps come
+from one native pass a batch (``_lattice_node_pass``) that gives the
+reference's node maps bit for bit.  Scatters write in place
 into the output batch where the reference donated its buffer.
 """
 import logging
@@ -233,139 +235,76 @@ def _matrix_nodes(plan, ys, xs):
     return sy, sx
 
 
-def _repair_node_maps(cy, cx, cov, ys, xs):
-    """Node-level twin of the full-resolution repair: fill uncovered node
-    positions by interpolation / LOCAL-slope extension (float64 in
-    place).  Extended values are shape-consistent with their rows, which
-    keeps the banded tap budget small near canvas borders.  Vectorized
-    across rows (the per-row python loop was the node-building hot spot);
-    only rows with interior coverage gaps (rare: boundary rounding) take
-    a per-row np.interp pass."""
-    rows, cols = cov.shape
-    xs_f = xs.astype(np.float64)
-    ys_f = ys.astype(np.float64)
-    row_any = cov.any(axis=1)
-    covered_rows = np.flatnonzero(row_any)
-    if len(covered_rows) == 0:
-        return
-    cr = covered_rows
-    first = cov[cr].argmax(axis=1)
-    last = cols - 1 - cov[cr][:, ::-1].argmax(axis=1)
-    counts = cov[cr].sum(axis=1)
-    for i in np.flatnonzero(counts != (last - first + 1)):
-        r = cr[i]
-        idx = np.flatnonzero(cov[r])
-        fx = xs_f[idx]
-        cx[r] = np.interp(xs_f, fx, cx[r, idx])
-        cy[r] = np.interp(xs_f, fx, cy[r, idx])
+def _lattice_node_pass(plans, rows, ys, xs, coarse_y, coarse_x,
+                       repair=True, covered=None) -> bool:
+    """Node maps of lattice ``plans`` into rows ``rows`` of the float32
+    (n, len(ys), len(xs)) arrays ``coarse_y`` / ``coarse_x``, in one native
+    call (``vg_lattice_node_maps_batch``, native/node_maps.cpp).
 
-    partial = np.flatnonzero((first > 0) | (last < cols - 1))
-    if len(partial):
-        pr = cr[partial]
-        pf = first[partial]
-        pl = last[partial]
-        ar = np.arange(len(pr))
-        cxr = cx[pr]
-        cyr = cy[pr]
-        f1 = np.minimum(pf + 1, pl)
-        l1 = np.maximum(pl - 1, pf)
-        gl = np.maximum(xs_f[f1] - xs_f[pf], 1.0)
-        gr = np.maximum(xs_f[pl] - xs_f[l1], 1.0)
-        sxl = (cxr[ar, f1] - cxr[ar, pf]) / gl
-        syl = (cyr[ar, f1] - cyr[ar, pf]) / gl
-        sxr = (cxr[ar, pl] - cxr[ar, l1]) / gr
-        syr = (cyr[ar, pl] - cyr[ar, l1]) / gr
-        deg = pl == pf
-        sxl = np.where(deg, 1.0, sxl)
-        syl = np.where(deg, 0.0, syl)
-        sxr = np.where(deg, 1.0, sxr)
-        syr = np.where(deg, 0.0, syr)
-        colg = np.arange(cols)[None, :]
-        left_m = colg < pf[:, None]
-        right_m = colg > pl[:, None]
-        dl = xs_f[None, :] - xs_f[pf][:, None]
-        dr = xs_f[None, :] - xs_f[pl][:, None]
-        cxr = np.where(left_m, cxr[ar, pf][:, None] + dl * sxl[:, None], cxr)
-        cxr = np.where(right_m, cxr[np.arange(len(pr)), pl][:, None]
-                       + dr * sxr[:, None], cxr)
-        cyr = np.where(left_m, cy[pr][ar, pf][:, None] + dl * syl[:, None],
-                       cyr)
-        cyr = np.where(right_m, cy[pr][ar, pl][:, None] + dr * syr[:, None],
-                       cyr)
-        cx[pr] = cxr
-        cy[pr] = cyr
-
-    if len(covered_rows) == rows:
-        return
-    top, bottom = covered_rows[0], covered_rows[-1]
-    t1 = min(top + 1, bottom)
-    b1 = max(bottom - 1, top)
-    gt = max(ys_f[t1] - ys_f[top], 1.0)
-    gb = max(ys_f[bottom] - ys_f[b1], 1.0)
-    sy_t = (cy[t1] - cy[top]) / gt
-    sx_t = (cx[t1] - cx[top]) / gt
-    sy_b = (cy[bottom] - cy[b1]) / gb
-    sx_b = (cx[bottom] - cx[b1]) / gb
-    if bottom == top:
-        sy_t = sy_b = np.ones(cols)
-        sx_t = sx_b = np.zeros(cols)
-    if top > 0:
-        d = (ys_f[:top] - ys_f[top])[:, None]
-        cy[:top] = cy[top][None] + d * sy_t[None]
-        cx[:top] = cx[top][None] + d * sx_t[None]
-    if bottom < rows - 1:
-        d = (ys_f[bottom + 1:] - ys_f[bottom])[:, None]
-        cy[bottom + 1:] = cy[bottom][None] + d * sy_b[None]
-        cx[bottom + 1:] = cx[bottom][None] + d * sx_b[None]
-    interior = np.flatnonzero(~row_any)
-    interior = interior[(interior > top) & (interior < bottom)]
-    for r in interior:
-        r0 = covered_rows[np.argmin(np.abs(covered_rows - r))]
-        near_top = (r0 - top) <= (bottom - r0)
-        d = ys_f[r] - ys_f[r0]
-        cy[r] = cy[r0] + d * (sy_t if near_top else sy_b)
-        cx[r] = cx[r0] + d * (sx_t if near_top else sx_b)
-
-
-def lattice_node_maps(plan, ys, xs):
-    """(cy, cx) float64 node-sampled backward maps for a lattice plan,
-    repaired at node level; None when the native kernel is unavailable
-    (callers fall back to full-resolution maps + subsampling)."""
+    A node takes the inverse homography of the last cell whose quad
+    covers its pixel by vg_fill_poly's rule (scanline spans and outline),
+    decided at the node alone; with ``repair`` the uncovered nodes are
+    then filled as vkit_tpu's ``_repair_node_maps`` fills them, in float64
+    on the float32-rounded values.  ``covered`` (uint8, (len(plans), len(ys),
+    len(xs))) receives the coverage.  False, writing nothing, when the
+    native library is unavailable."""
     try:
         from ..native import load_library
         lib = load_library()
     except Exception:  # noqa: BLE001
-        return None
-    if lib is None or not hasattr(lib, 'vg_lattice_node_maps'):
-        return None
+        return False
+    if lib is None or not hasattr(lib, 'vg_lattice_node_maps_batch'):
+        return False
     import ctypes
-    f64p = ctypes.POINTER(ctypes.c_double)
-    f32p = ctypes.POINTER(ctypes.c_float)
-    i32p = ctypes.POINTER(ctypes.c_int32)
-    u8p = ctypes.POINTER(ctypes.c_uint8)
-
-    inv_mats = np.ascontiguousarray(
-        plan._cell_mats(inverse=True), dtype=np.float64
-    )
-    quads = np.ascontiguousarray(plan._quads('dst'), dtype=np.float64)
-    dst_h, dst_w = plan.dst_shape
+    lattices = [np.ascontiguousarray(p._int_lattice('dst'), dtype=np.int64)
+                for p in plans]
+    mats = [np.ascontiguousarray(p._cell_mats(inverse=True), dtype=np.float64)
+            for p in plans]
+    for lat, mat in zip(lattices, mats):
+        assert len(mat) == (lat.shape[0] - 1) * (lat.shape[1] - 1)
+    n = len(plans)
+    lat_shapes = np.asarray([lat.shape[:2] for lat in lattices], np.int32)
+    dst_shapes = np.asarray([p.dst_shape for p in plans], np.int32)
     ys32 = np.ascontiguousarray(ys, dtype=np.int32)
     xs32 = np.ascontiguousarray(xs, dtype=np.int32)
-    cy = np.zeros((len(ys), len(xs)), dtype=np.float32)
-    cx = np.zeros((len(ys), len(xs)), dtype=np.float32)
-    cov = np.zeros((len(ys), len(xs)), dtype=np.uint8)
-    lib.vg_lattice_node_maps(
-        quads.ctypes.data_as(f64p), inv_mats.ctypes.data_as(f64p),
-        len(quads), dst_h, dst_w,
+    out_rows = np.ascontiguousarray(rows, dtype=np.int64)
+    assert coarse_y.flags.c_contiguous and coarse_x.flags.c_contiguous
+    assert coarse_y.dtype == coarse_x.dtype == np.float32
+    assert coarse_y.shape == coarse_x.shape
+    assert coarse_y.shape[1:] == (len(ys), len(xs))
+    assert len(out_rows) == n and (out_rows < len(coarse_y)).all()
+    if covered is not None:
+        assert covered.dtype == np.uint8 and covered.flags.c_contiguous
+        assert covered.shape == (n, len(ys), len(xs))
+    ptrs = ctypes.c_void_p * n
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    lib.vg_lattice_node_maps_batch(
+        n, ptrs(*[a.ctypes.data for a in lattices]),
+        lat_shapes.ctypes.data_as(i32p),
+        ptrs(*[m.ctypes.data for m in mats]),
+        dst_shapes.ctypes.data_as(i32p),
         ys32.ctypes.data_as(i32p), len(ys32),
         xs32.ctypes.data_as(i32p), len(xs32),
-        cy.ctypes.data_as(f32p), cx.ctypes.data_as(f32p),
-        cov.ctypes.data_as(u8p),
+        out_rows.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), int(repair),
+        coarse_y.ctypes.data_as(f32p), coarse_x.ctypes.data_as(f32p),
+        None if covered is None
+        else covered.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
     )
-    cy = cy.astype(np.float64)
-    cx = cx.astype(np.float64)
-    _repair_node_maps(cy, cx, cov.astype(bool), ys, xs)
-    return cy, cx
+    return True
+
+
+def lattice_node_maps(plan, ys, xs):
+    """(cy, cx) float32 node maps of a lattice plan, repaired at node
+    level: each node evaluated alone by the cells' fill rule, as
+    ``_lattice_node_pass`` does for a batch; None when the native kernel
+    is unavailable (callers fall back to full-resolution maps +
+    subsampling)."""
+    cy = np.empty((1, len(ys), len(xs)), dtype=np.float32)
+    cx = np.empty_like(cy)
+    if not _lattice_node_pass([plan], [0], ys, xs, cy, cx):
+        return None
+    return cy[0], cx[0]
 
 
 # Coarse-node spacing of the banded/gather warp paths.  The node arrays
@@ -386,11 +325,16 @@ _FINE_NODE_CANVAS = 320      # min(canvas) below this -> 8-px nodes
 def _build_coarse_nodes(map_list, shapes, canvas, node_step: Optional[int] = None):
     """Sample every sample's backward field at shared coarse nodes.
 
-    ``map_list`` entries are either (map_y, map_x) full-res arrays
-    (lattice plans) or WarpPlan objects (matrix/nop — evaluated
-    analytically at the nodes, valid beyond the dst canvas too).
-    Returns (coarse_y, coarse_x, ys, xs) with linear extension beyond
-    each sample's own canvas."""
+    ``map_list`` entries are either (map_y, map_x) full-res arrays or
+    WarpPlan objects.  Lattice plans are evaluated at the node pixels
+    alone, all of them in one native pass (``_lattice_node_pass``: the
+    cells' fill rule tested at each node, then the node repair); without
+    the native library each takes its full-resolution maps.  Matrix/nop
+    plans are evaluated analytically at the nodes, valid beyond the dst
+    canvas too.  Counts the lattice samples each way
+    (``plan_warp.nodes.native``, ``plan_warp.nodes.fullres``).  Returns
+    (coarse_y, coarse_x, ys, xs) with linear extension beyond each
+    sample's own canvas."""
     if node_step is None:
         node_step = (
             8 if min(canvas) < _FINE_NODE_CANVAS else COARSE_NODE_STEP
@@ -410,12 +354,20 @@ def _build_coarse_nodes(map_list, shapes, canvas, node_step: Optional[int] = Non
 
     coarse_y = np.empty((n, len(ys), len(xs)), dtype=np.float32)
     coarse_x = np.empty((n, len(ys), len(xs)), dtype=np.float32)
+    lattice = [idx for idx, entry in enumerate(map_list)
+               if not isinstance(entry, tuple)
+               and getattr(entry, 'is_lattice', False)]
+    native = bool(lattice) and _lattice_node_pass(
+        [map_list[idx] for idx in lattice], lattice, ys, xs,
+        coarse_y, coarse_x,
+    )
+    if lattice:
+        profiling.count('plan_warp.nodes.native' if native
+                        else 'plan_warp.nodes.fullres', len(lattice))
     for idx, entry in enumerate(map_list):
         if not isinstance(entry, tuple):
             if getattr(entry, 'is_lattice', False):
-                res = lattice_node_maps(entry, ys, xs)
-                if res is not None:
-                    coarse_y[idx], coarse_x[idx] = res
+                if native:
                     continue
                 entry = plan_backward_maps(entry, entry.src_shape)[:2]
             else:

@@ -1,11 +1,17 @@
 """Native (C++) host kernels, loaded via ctypes.
 
-Counterpart of vkit_tpu/native: the same ``geometry.cpp``, built with the
-same g++ flags so both packages compute the same numbers.  The library
-builds at first use into ``native/build/`` under a name that hashes the
-source and the flags; the build writes a temporary file and renames it into
-place, so a process never loads a half-written library that another process
-is still writing.  Any failure falls back to the pure-python
+Counterpart of vkit_tpu/native: the same ``geometry.cpp``, byte for byte,
+built with the same g++ flags so both packages compute the same numbers.
+The port's second source, ``node_maps.cpp``, holds
+``vg_lattice_node_maps_batch``, the coarse node maps of a batch of lattice
+plans in one call (``_lattice_node_pass`` in ``mechanism/batched.py``): the
+fill rule of ``vg_lattice_node_maps`` decided at the node pixels alone, then
+the node repair of vkit_tpu's ``_repair_node_maps``, with the same numbers
+as both.  Both sources build into one library at first use, into
+``native/build/`` under a name that hashes the sources and the flags; the
+build writes a temporary file and renames it into place, so a process never
+loads a half-written library that another process is still writing.  Any
+failure falls back to the pure-python
 implementations in geometry/_numpy_impl.py.
 """
 import ctypes
@@ -18,7 +24,8 @@ from typing import Optional
 
 logger = logging.getLogger(__name__)
 
-_SRC = Path(__file__).resolve().parent / 'geometry.cpp'
+_SRCS = tuple(Path(__file__).resolve().parent / name
+              for name in ('geometry.cpp', 'node_maps.cpp'))
 _BUILD = Path(__file__).resolve().parent / 'build'
 _GXX_FLAGS = (
     '-O3', '-march=native', '-ffp-contract=off', '-funroll-loops',
@@ -29,7 +36,9 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(_SRC.read_bytes())
+    digest = hashlib.sha256()
+    for src in _SRCS:
+        digest.update(src.read_bytes())
     digest.update(' '.join(_GXX_FLAGS).encode())
     return _BUILD / f'libvkitgeom_{digest.hexdigest()[:16]}.so'
 
@@ -39,7 +48,7 @@ def _build(target: Path) -> bool:
     try:
         _BUILD.mkdir(parents=True, exist_ok=True)
         subprocess.run(
-            ['g++', *_GXX_FLAGS, str(_SRC), '-o', str(tmp)],
+            ['g++', *_GXX_FLAGS, *map(str, _SRCS), '-o', str(tmp)],
             check=True, capture_output=True, timeout=120,
         )
         os.replace(tmp, target)
@@ -112,6 +121,14 @@ def load_library() -> Optional[ctypes.CDLL]:
         ctypes.c_int, ctypes.c_int,
     ]
     lib.vg_repair_backward_maps.restype = None
+    ptrs = ctypes.POINTER(ctypes.c_void_p)
+    lib.vg_lattice_node_maps_batch.argtypes = [
+        ctypes.c_int, ptrs, i32p, ptrs, i32p,
+        i32p, ctypes.c_int, i32p, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
+        f32p, f32p, ctypes.POINTER(ctypes.c_uint8),
+    ]
+    lib.vg_lattice_node_maps_batch.restype = None
 
     _lib = lib
     return lib
