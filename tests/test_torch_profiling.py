@@ -185,15 +185,15 @@ def _camera(theta, alpha, beta, direction, vec):
 
 
 MILD = _camera(2, -4, -4, 0.0, (1.0, 0.0, 0.0))
-# Beside MILD at 128 px, the banded plan rejects these two; the tail's
-# half-resolution re-plan takes the first and rejects the second.
+# Beside MILD at 128 px, the banded plan rejects these two, and the gather
+# route takes them.
 HALF = _camera(17, 45, -45, 0.0, (0.6, 0.8, 0.0))
 GATHER = _camera(-8, 45, -45, 135.0, (1.0, 0.0, 0.0))
 
 # name -> (camera configs, rotate configs, mode, samples each route serves)
 BATCHES = {
     'camera-banded': ([MILD, MILD], [], 'auto', dict(banded=2)),
-    'camera-half': ([MILD, HALF], [], 'auto', dict(banded=1, half=1)),
+    'camera-half': ([MILD, HALF], [], 'auto', dict(banded=1, gather=1)),
     'camera-gather': ([MILD, GATHER], [], 'auto', dict(banded=1, gather=1)),
     'camera-forced-gather': ([MILD, HALF], [], 'gather', dict(gather=2)),
     'rotate': ([], [{'angle': 17.0}, {'angle': -80.0}, {'angle': 101.0}],
@@ -267,3 +267,103 @@ def test_dense_mode_records_nothing():
     with profiling.recording() as rec:
         TB.batched_plan_warp(plans, images, mode='dense')
     assert rec.spans == [] and not rec.counters
+
+
+# ---------------------------------------------------------------------------
+# The synthesis program's spans and counters.
+# ---------------------------------------------------------------------------
+
+SYNTH_STAGES = {
+    'assemble', 'photometric', 'plan-host', 'warp', 'active-host', 'finish',
+    'polygons-host', 'char-gaussians', 'crops', 'region',
+    'region.collect-host', 'region.gather+flatten', 'region.composite',
+    'region.gaussians', 'region.regression-host', 'fetch',
+}
+
+
+@pytest.fixture(scope='module')
+def synth_planner(tmp_path_factory):
+    from vkit_tpu_torch.synth import assets as A
+
+    root = tmp_path_factory.mktemp('profiling_synth_assets')
+    assets = A.build_assets(root, A.find_font(root))
+    return A.make_planner(assets, 256)
+
+
+def _synth_options():
+    from vkit_tpu_torch.synth import CropConfig, RegionStreamConfig
+
+    return dict(
+        crop_config=CropConfig(core_size=192, num_per_page=2),
+        emit_char_gaussians=True,
+        region_config=RegionStreamConfig(page_size=256,
+                                         target_char_height=24,
+                                         num_crops_per_page=2,
+                                         crop_size=128),
+        device='cpu',
+    )
+
+
+def test_synth_spans_and_counters(synth_planner, monkeypatch):
+    from vkit_tpu_torch.synth import synthesize_page_batch
+
+    synced = []
+    monkeypatch.setattr(torch.cuda, 'synchronize',
+                        lambda *a, **k: synced.append(a))
+    pages = synth_planner.prepare_batch(1, np.random.default_rng(14))
+    before = profiling.last_recording()
+    plain = synthesize_page_batch(pages, 5, np.random.default_rng(15),
+                                  **_synth_options())
+    assert profiling.last_recording() is before
+    with profiling.recording() as rec:
+        traced = synthesize_page_batch(pages, 5, np.random.default_rng(15),
+                                       **_synth_options())
+    assert synced == []
+    np.testing.assert_array_equal(traced.images, plain.images)
+    np.testing.assert_array_equal(traced.crop_images, plain.crop_images)
+    np.testing.assert_array_equal(traced.text_regions.images,
+                                  plain.text_regions.images)
+
+    synth = [s for s in rec.spans if s.name.startswith('synth.')]
+    assert {s.name for s in synth} == {f'synth.{n}' for n in SYNTH_STAGES}
+    by_id = {s.span_id: s for s in rec.spans}
+    for s in synth:
+        parent = by_id.get(s.parent)
+        if s.name.startswith('synth.region.'):
+            assert parent.name == 'synth.region'
+        else:
+            assert s.parent is None
+    # The warp's own spans run under synth.warp.
+    step, = [s for s in rec.spans if s.name == 'plan_warp']
+    assert by_id[step.parent].name == 'synth.warp'
+
+    regions = traced.text_regions
+    assert regions.num_pages >= 1 and regions.num_crops >= 1
+    assert traced.num_crops >= 1
+    counted = {k: v for k, v in rec.counters.items()
+               if k.startswith('synth.')}
+    assert counted == {
+        'synth.pages': len(pages),
+        'synth.crops': traced.num_crops,
+        'synth.region_pages': regions.num_pages,
+        'synth.region_crops': regions.num_crops,
+        'synth.regions': sum(len(b) for b in regions.region_boxes),
+    }
+
+
+def test_synth_stream_spans_the_prep_and_its_wait(synth_planner):
+    from vkit_tpu_torch.synth import synthesize_stream
+
+    with profiling.recording() as rec:
+        results = list(synthesize_stream(
+            synth_planner, 1, 5, np.random.default_rng(3), num_batches=2,
+            device='cpu'))
+    assert len(results) == 2
+    main = threading.get_ident()
+    waits = [s for s in rec.spans if s.name == 'synth.prep_wait']
+    preps = [s for s in rec.spans if s.name == 'synth.prep']
+    # One wait a batch and one for the end of the stream.
+    assert len(waits) == 3 and all(s.thread == main for s in waits)
+    assert len(preps) == 2 and all(s.thread != main for s in preps)
+    assert all(s.parent is None for s in waits + preps)
+    assert rec.counters['synth.pages'] == 2

@@ -23,6 +23,7 @@ from vkit_tpu.synth import region as jax_region_mod
 from vkit_tpu.synth import synthesize_page_batch as jax_synthesize
 from vkit_tpu.synth import synthesize_stream as jax_synthesize_stream
 from vkit_tpu_torch.mechanism.batched import RNG_CONSUMING
+from vkit_tpu_torch.ops import region as region_ops
 from vkit_tpu_torch.synth import (
     RegionStreamConfig,
     synthesize_page_batch,
@@ -239,6 +240,61 @@ def test_chunked_flatten_matches_single_chunk(planners, monkeypatch):
     np.testing.assert_array_equal(chunked.images, base.images)
     np.testing.assert_array_equal(chunked.active_masks, base.active_masks)
     np.testing.assert_array_equal(chunked.gaussian_maps, base.gaussian_maps)
+
+
+def test_own_destination_tiles_match_one_tile_for_all(planners,
+                                                      monkeypatch):
+    """Each region flattened at its own destination tile composites the
+    same pages as every region at the largest tile, chunk by chunk, with
+    no chunk's rgba tiles past the budget unless it holds the least rows."""
+    pages = planners[1].prepare_batch(2, np.random.default_rng(13))
+    config = RegionStreamConfig(page_size=320, target_char_height=24)
+    calls = []
+    flatten = region_ops.batch_flatten_regions
+
+    def recorded(patches, angles, scales, dst_tile, *args, **kwargs):
+        calls.append((len(angles), dst_tile))
+        return flatten(patches, angles, scales, dst_tile, *args, **kwargs)
+
+    monkeypatch.setattr(region_ops, 'batch_flatten_regions', recorded)
+
+    def run():
+        calls.clear()
+        return synthesize_page_batch(
+            pages, 3, np.random.default_rng(5), region_config=config,
+            device='cpu').text_regions
+
+    monkeypatch.setattr(region_mod, '_CHUNK_BUDGET_BYTES', 64 << 20)
+    own = run()
+    own_calls = list(calls)
+    assert len({dst for _, dst in own_calls}) >= 2
+    for rows, dst in own_calls:
+        assert rows * dst * dst * 16 <= 64 << 20 or rows <= 64
+    monkeypatch.setattr(region_mod, '_dst_tile',
+                        lambda need, config: config.dst_tile_max)
+    one = run()
+    assert {dst for _, dst in calls} == {config.dst_tile_max}
+    assert one.num_pages == own.num_pages
+    np.testing.assert_array_equal(own.images, one.images)
+    np.testing.assert_array_equal(own.active_masks, one.active_masks)
+    np.testing.assert_array_equal(own.gaussian_maps, one.gaussian_maps)
+    assert [_boxes(b) for b in own.region_boxes] == [
+        _boxes(b) for b in one.region_boxes]
+
+
+@pytest.mark.parametrize('need, tile', [
+    (1, 128), (128, 128), (129, 256), (256, 256), (300, 512), (512, 512),
+    (700, 512)])
+def test_a_region_takes_the_least_destination_tile_that_holds_it(need,
+                                                                 tile):
+    assert region_mod._dst_tile(need, RegionStreamConfig()) == tile
+
+
+@pytest.mark.parametrize('tile, dst_tile, rows', [
+    (64, 128, 1024), (64, 256, 1024), (64, 512, 256), (128, 512, 256),
+    (512, 512, 128)])
+def test_flatten_chunk_rows_fit_the_budget(tile, dst_tile, rows):
+    assert region_mod._flatten_rows(tile, dst_tile) == rows
 
 
 def test_no_text_returns_none():

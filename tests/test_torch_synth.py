@@ -221,8 +221,10 @@ def test_stage_timer_spans_leave_result_unchanged(planners):
         'region.collect-host', 'region.gather+flatten', 'region.composite',
         'region.gaussians', 'region.regression-host', 'fetch',
     }
-    # One flatten span per (source tile, chunk); every other span once.
-    assert timer.counts.pop('region.gather+flatten') >= 1
+    # One flatten and one composite span per chunk of regions; every
+    # other span once.
+    chunks = timer.counts.pop('region.gather+flatten')
+    assert chunks >= 1 and timer.counts.pop('region.composite') == chunks
     assert all(count == 1 for count in timer.counts.values())
     np.testing.assert_array_equal(timed.images, plain.images)
     np.testing.assert_array_equal(timed.label_stack, plain.label_stack)

@@ -14,14 +14,17 @@ images' device and match the reference in distribution only.
 
 The geometric half: the device helpers ``_coarse_gather_remap``,
 ``_coarse_gather_warp``, ``_upsample_node_maps``, ``_scatter_samples``,
-``_banded_group_scatter``, ``_merge_subbatches``, ``_affine_sub_warp``,
-``_mean_pool2`` and ``_coarse_mxu_warp``, ``batched_plan_warp`` in modes
+``_banded_group_scatter``, ``_merge_subbatches``, ``_affine_sub_warp``
+and ``_coarse_mxu_warp``, ``batched_plan_warp`` in modes
 ``auto``, ``gather`` and ``dense``, and ``batched_grid_warp``, which plans
 one geometric distortion per sample on the host and warps through it.
 The host side (``plan_backward_maps``,
 ``_build_coarse_nodes``, ``_bucket_pad``, ``LazyCoverages``, the affine /
 banded / gather routing, the plans) is the reference's own code, so both
-packages send every sample down the same route; the lattice node maps come
+packages send every sample down the same route, but for one repair: a
+sample the banded plan rejects always takes the gather route, which is the
+exact bilinear remap (the reference sends some rejects through a 2x
+mean-pooled copy and a re-plan at half size); the lattice node maps come
 from one native pass a batch (``_lattice_node_pass``) that gives the
 reference's node maps bit for bit.  Scatters write in place
 into the output batch where the reference donated its buffer.
@@ -554,23 +557,15 @@ def _affine_sub_warp(x, idx, quads, aplan, statics, border_value,
     return apply_affine_warp(sub, aplan, statics, border_value=border_value)
 
 
-def _mean_pool2(x):
-    """(N, H, W, ...) -> (N, H/2, W/2, ...) 2x2 mean pool."""
-    return (
-        x[:, 0::2, 0::2] + x[:, 1::2, 0::2]
-        + x[:, 0::2, 1::2] + x[:, 1::2, 1::2]
-    ) * 0.25
-
-
 def _coarse_mxu_warp(images, nodes, src_shape, canvas, border_value,
                      return_maps: bool, content_boxes=None,
                      samples: Optional[int] = None):
     """Banded two-pass warp from node maps; samples the decomposition
-    rejects run the 2x-downscale tail or the gather program as a
-    sub-batch and overwrite their rows.  Returns None only when every
-    sample rejects.  ``samples``: how many leading rows are samples of
-    the caller's batch (the rest pad a bucket); only those count on the
-    route counters (all rows by default)."""
+    rejects run the gather program as a sub-batch and overwrite their
+    rows.  Returns None only when every sample rejects.  ``samples``: how
+    many leading rows are samples of the caller's batch (the rest pad a
+    bucket); only those count on the route counters (all rows by
+    default)."""
     span, count = profiling.span, profiling.count
     coarse_y, coarse_x, ys, xs = nodes
     n = len(coarse_y)
@@ -613,47 +608,19 @@ def _coarse_mxu_warp(images, nodes, src_shape, canvas, border_value,
                     tuple(canvas), gtaps, border_value, pos == 0,
                 )
     if len(rejects):
+        # Gather route for every reject: fold-overs, tap needs past the
+        # ladder, extreme zooms.
         ridx = _bucket_pad(rejects, n, ladder=(8, 16))
-        rejected = int(np.count_nonzero(np.asarray(rejects) < counted))
-        done = False
-        h2, w2 = src_shape[0] // 2, src_shape[1] // 2
-        if src_shape[0] % 2 == 0 and src_shape[1] % 2 == 0:
-            # 2x-downscale tail for extreme zooms: a mean-pool prefilter
-            # halves every slope and the halved field re-plans under the
-            # tap ladder (half-pixel centers: s -> 0.5 * s - 0.25).
-            with span('plan_warp.band_plan'):
-                planned2 = plan_banded_warp(
-                    coarse_y[ridx] * 0.5 - 0.25,
-                    coarse_x[ridx] * 0.5 - 0.25,
-                    ys, xs, (h2, w2), canvas,
-                    content_boxes=(None if content_boxes is None
-                                   else content_boxes[ridx]),
-                )
-            if planned2 is not None and len(planned2[2]) == 0:
-                plan2, taps2, _, flips2, _ = planned2
-                with span('plan_warp.enqueue'):
-                    sub_half = _mean_pool2(
-                        x[torch.as_tensor(ridx, device=device)]
-                    )
-                    res = apply_banded_warp(
-                        sub_half, convert.banded_warp_plan(plan2, device),
-                        canvas, taps2, flips=flips2,
-                        border_value=border_value,
-                    )
-                    warped = _scatter_samples(warped, ridx, res)
-                count('plan_warp.samples.half', rejected)
-                done = True
-        if not done:
-            # Gather fallback (fold-overs the half-res plan still rejects).
-            with span('plan_warp.enqueue'):
-                sub = x[torch.as_tensor(ridx, device=device)]
-                sub_nodes = (coarse_y[ridx], coarse_x[ridx], ys, xs)
-                res, _ = _coarse_gather_warp(
-                    sub, [None] * len(ridx), None, canvas, border_value,
-                    nodes=sub_nodes,
-                )
-                warped = _scatter_samples(warped, ridx, res)
-            count('plan_warp.samples.gather', rejected)
+        with span('plan_warp.enqueue'):
+            sub = x[torch.as_tensor(ridx, device=device)]
+            sub_nodes = (coarse_y[ridx], coarse_x[ridx], ys, xs)
+            res, _ = _coarse_gather_warp(
+                sub, [None] * len(ridx), None, canvas, border_value,
+                nodes=sub_nodes,
+            )
+            warped = _scatter_samples(warped, ridx, res)
+        count('plan_warp.samples.gather',
+              int(np.count_nonzero(np.asarray(rejects) < counted)))
 
     with span('plan_warp.enqueue'):
         warped = to_image_dtype(warped, orig_dtype)
@@ -780,8 +747,7 @@ def batched_plan_warp(
       1. affine samples (nop included) -> the two-shear warp (3 taps,
          per-sample rot90 quadrant reduction);
       2. everything else -> the coarse-node banded two-pass;
-      3. fields the banded plan rejects -> the 2x-downscale tail or the
-         bilinear-gather program.
+      3. fields the banded plan rejects -> the bilinear-gather program.
     ``mode='gather'`` forces 3 for every sample.  ``mode='dense'`` is the
     reference's legacy route: full-resolution backward maps planned into
     the dense two-pass (ops/warp_mxu.py) when every sample's field is

@@ -55,6 +55,7 @@ from ..ops.glyph import (
     composite_patches,
 )
 from ..ops.region import batch_char_heatmaps
+from ..utility import profiling
 from .prep import CHAR_HEIGHT, TEXT_LINE_HEIGHT, HostPage
 
 __all__ = ['CropConfig', 'SynthBatchResult', 'synthesize_page_batch',
@@ -416,14 +417,16 @@ def _co_transform(plans, pages):
 
 
 def _spans(timer, device):
-    """``timer.measure(name)``, closed by a device synchronize; a span that
-    does nothing without a timer."""
+    """A stage's spans: the program span ``synth.<name>``
+    (utility/profiling.py: free without an active recording, and it waits
+    for nothing), and with a timer also ``timer.measure(name)``, closed by
+    a device synchronize."""
     if timer is None:
-        return lambda name: contextlib.nullcontext()
+        return lambda name: profiling.span('synth.' + name)
 
     @contextlib.contextmanager
     def measure(name):
-        with timer.measure(name):
+        with profiling.span('synth.' + name), timer.measure(name):
             yield
             if device.type == 'cuda':
                 torch.cuda.synchronize(device)
@@ -460,7 +463,16 @@ def synthesize_page_batch(
     ``timer``: an object with a ``measure(name)`` context manager, such as
     vkit_tpu's ``StepTimer``.  With one, each stage is a span that ends with
     a device synchronize, so it holds the stage's device time; the spans
-    serialize host and device work, so leave it None outside profiling."""
+    serialize host and device work, so leave it None outside profiling.
+
+    Each stage is also a program span ``synth.<stage>`` of the active
+    recording (utility/profiling.py), which synchronizes nothing:
+    ``synth.assemble``, ``.photometric``, ``.plan-host``, ``.warp``,
+    ``.active-host``, ``.finish``, ``.polygons-host``, ``.char-gaussians``,
+    ``.crops``, ``.region`` (its parts ``synth.region.*``) and ``.fetch``;
+    the counters ``synth.pages`` and ``synth.crops`` add the batch's pages
+    and page crops (``synth.region_pages``, ``.region_crops`` and
+    ``.regions`` those of the text-region stream)."""
     device = convert.resolve_device(device)
     n = len(pages)
     if n == 0:
@@ -576,6 +588,8 @@ def synthesize_page_batch(
                 crop_page_ids = sids
                 crop_windows = np.stack([c_ups, c_lefts], axis=1)
 
+    profiling.count('synth.pages', n)
+    profiling.count('synth.crops', num_crops)
     result = SynthBatchResult(
         images=images,
         label_stack=label_stack,
@@ -632,7 +646,9 @@ def synthesize_stream(
     """Generator of SynthBatchResults with host prep overlapped against
     device work: a background thread keeps up to ``prefetch`` prepared
     page batches queued while the device program drains the previous one.
-    Per-batch child seeds are drawn from ``rng`` up front, in order."""
+    Per-batch child seeds are drawn from ``rng`` up front, in order.
+    Program spans: ``synth.prep`` around each batch's prep on that thread,
+    ``synth.prep_wait`` around the wait for it here."""
     device = convert.resolve_device(device)
     prep_queue: 'queue.Queue' = queue.Queue(maxsize=max(prefetch, 1))
     seeds = [int(rng.integers(0, 2**63 - 1)) for _ in range(num_batches)]
@@ -646,7 +662,9 @@ def synthesize_stream(
             for batch_rng in level_rngs:
                 if stop.is_set():
                     return
-                prep_queue.put(planner.prepare_batch(batch_size, batch_rng))
+                with profiling.span('synth.prep'):
+                    pages = planner.prepare_batch(batch_size, batch_rng)
+                prep_queue.put(pages)
         except Exception as exc:  # noqa: BLE001 - relayed to the consumer
             prep_queue.put(exc)
         else:
@@ -656,7 +674,8 @@ def synthesize_stream(
     thread.start()
     try:
         for idx in range(num_batches + 1):
-            pages = prep_queue.get()
+            with profiling.span('synth.prep_wait'):
+                pages = prep_queue.get()
             if pages is None:
                 break
             if isinstance(pages, Exception):

@@ -9,14 +9,17 @@ crops:
      text regions); each region gets a flattening angle (undo the word's
      post-warp orientation) and an adaptive scale (target char height /
      the region's median char height).
-  2. All regions of the whole batch flatten in a few device calls —
-     rotate+scale composed into one affine per region, bucketed by
-     source-tile size (ops/region.batch_flatten_regions, on the two-shear
-     warp and its row-shift kernels); char polygons co-transform
-     analytically through the same mats in one einsum.
-  3. Flattened regions shelf-pack onto square canvases (pinwheel
-     background) and composite per flatten chunk
-     (ops/glyph.composite_patches_and_alpha).
+  2. The flatten is planned on the host first: rotate+scale composed
+     into one affine per region, each region's source tile from its
+     window and its destination tile from its own flattened extent; char
+     polygons co-transform analytically through the same mats in one
+     einsum per chunk.
+  3. Flattened extents shelf-pack onto square canvases (pinwheel
+     background).  Then the regions of each (source tile, destination
+     tile) group gather, flatten (ops/region.batch_flatten_regions, on the
+     two-shear warp and its row-shift kernels) and composite
+     (ops/glyph.composite_patches_and_alpha) a chunk at a time, so the
+     card holds one chunk's tiles at once.
   4. Labels: per-char gaussian score maps render on the device
      (ops/region.batch_char_heatmaps) and the char regression encodings
      (up-left offsets, clockwise angle distribution, corner distances)
@@ -288,6 +291,25 @@ def _chunk_rows(tile: int) -> int:
     return r
 
 
+def _dst_tile(need: int, config: RegionStreamConfig) -> int:
+    """The destination tile of a region whose flattened extent needs
+    ``need`` px: the least rung of the ladder that holds it."""
+    for cand in _DST_TILE_LADDER:
+        if need <= cand <= config.dst_tile_max:
+            return cand
+    return config.dst_tile_max
+
+
+def _flatten_rows(tile: int, dst_tile: int) -> int:
+    """Region rows per gather/flatten/composite call: _chunk_rows(tile),
+    halved (to no fewer than 64) while the chunk's float32 rgba
+    destination tiles would pass the chunk budget."""
+    rows = _chunk_rows(tile)
+    while rows > 64 and rows * dst_tile * dst_tile * 16 > _CHUNK_BUDGET_BYTES:
+        rows //= 2
+    return rows
+
+
 def stack_text_regions(
     result,
     config: RegionStreamConfig,
@@ -321,6 +343,7 @@ def stack_text_regions(
     from ..pipeline.text_detection.page_text_region import (
         build_background_image_for_stacking,
     )
+    from ..utility import profiling
     from .device import _char_gaussian_maps, _extract_crops_program, _spans
 
     device = convert.resolve_device(device)
@@ -330,113 +353,59 @@ def stack_text_regions(
         regions = collect_regions(result, config)
     if not regions:
         return None
+    profiling.count('synth.regions', len(regions))
 
     images_dev = convert.to_tensor(result.images, device)
     active_dev = convert.to_tensor(result.active_masks, device)
 
     # ------------------------------------------------------------------
-    # Flatten: gather + warp, a few device calls per source-tile bucket.
+    # Flatten plan, on the host: each region's source tile (the ladder
+    # over its window) and destination tile (the ladder over its own
+    # flattened extent), its forward mat, extent and mapped char polygons.
     # ------------------------------------------------------------------
-    buckets: Dict[int, List[int]] = {}
-    for pos, region in enumerate(regions):
-        tile = _ladder(max(region.window.height, region.window.width))
-        buckets.setdefault(tile, []).append(pos)
+    src_tiles = np.asarray([
+        _ladder(max(region.window.height, region.window.width))
+        for region in regions
+    ])
+    angles_all = np.asarray([region.angle_deg for region in regions])
+    scales_all = np.asarray([region.scale for region in regions])
+    extents_all = np.asarray([
+        (region.window.height, region.window.width) for region in regions
+    ], dtype=np.int64).reshape(-1, 2)
+    dst_tiles = np.empty(len(regions), np.int64)
+    for tile in np.unique(src_tiles):
+        at = np.flatnonzero(src_tiles == tile)
+        _, need = plan_region_flatten(
+            angles_all[at], scales_all[at], int(tile), 1 << 30,
+            content_extents=extents_all[at],
+        )
+        dst_tiles[at] = [_dst_tile(int(n), config) for n in need.max(axis=1)]
 
-    # Chunked device calls: a full-content 8-page batch yields thousands
-    # of word regions, and one call over a whole bucket materializes
-    # rows x tile x window intermediates.  Each bucket therefore runs in
-    # row chunks of _chunk_rows(tile); the dst tile is chosen ONCE per
-    # bucket from the full host plan so all chunks composite alike.
-    flat_warped: Dict[Tuple[int, int], object] = {}  # (tile, chunk) -> dev
-    chunk_of: Dict[int, Tuple[int, int, int]] = {}   # pos -> (tile, ci, row)
+    # Device calls run in chunks of regions sharing both tiles, each
+    # flattened and composited before the next, so the card holds one
+    # chunk's tiles at a time.
+    groups: Dict[Tuple[int, int], List[int]] = {}
+    for pos in range(len(regions)):
+        groups.setdefault((int(src_tiles[pos]), int(dst_tiles[pos])),
+                          []).append(pos)
+    chunks: List[Tuple[int, int, List[int]]] = []
     flat_extents: List[Optional[Tuple[int, int]]] = [None] * len(regions)
     flat_chars: List[List[Polygon]] = [[] for _ in regions]
-    bucket_dst_tile: Dict[int, int] = {}
     quads_pp = getattr(result, 'char_quads', None)
 
-    for tile, positions in sorted(buckets.items()):
-        count = len(positions)
-
-        def region_row(pos):
-            region = regions[pos]
-            w = region.window
-            xy = region.poly_xy
-            if xy.shape[0] == 4:
-                rel = xy - np.asarray([w.left, w.up], np.float64)
-            else:  # non-quad word outline: fall back to the window bbox
-                rel = np.asarray([
-                    (0, 0), (w.width - 1.0, 0),
-                    (w.width - 1.0, w.height - 1.0), (0, w.height - 1.0),
-                ])
-            center = rel.mean(axis=0)
-            quad = center + (rel - center) * (1.0 + config.dilate_ratio)
-            return region, w, quad
-
-        # Host plan over the FULL bucket picks one dst tile.
-        angles_all = np.asarray([regions[p].angle_deg for p in positions])
-        scales_all = np.asarray([regions[p].scale for p in positions])
-        extents_all = np.asarray([
-            (regions[p].window.height, regions[p].window.width)
-            for p in positions
-        ], dtype=np.int64)
-        _, need = plan_region_flatten(
-            angles_all, scales_all, tile, 1 << 30,
-            content_extents=extents_all,
-        )
-        need_max = int(need.max())
-        dst_tile = config.dst_tile_max
-        for cand in _DST_TILE_LADDER:
-            if need_max <= cand <= config.dst_tile_max:
-                dst_tile = cand
-                break
-        bucket_dst_tile[tile] = dst_tile
-
-        chunk = _chunk_rows(tile)
-        for ci, i0 in enumerate(range(0, count, chunk)):
+    for (tile, dst_tile), positions in sorted(groups.items()):
+        chunk = _flatten_rows(tile, dst_tile)
+        for i0 in range(0, len(positions), chunk):
             sub = positions[i0:i0 + chunk]
-            rows = len(sub)
-            sids = np.zeros(rows, np.int32)
-            ups = np.zeros(rows, np.int32)
-            lefts = np.zeros(rows, np.int32)
-            hs = np.ones(rows, np.float32)
-            ws = np.ones(rows, np.float32)
-            quads = np.zeros((rows, 4, 2), np.float32)
-            angles = np.zeros(rows, np.float64)
-            scales = np.ones(rows, np.float64)
-            extents = np.ones((rows, 2), np.int64)
-            for row, pos in enumerate(sub):
-                # Dilated word polygon, window-relative (the region mask
-                # — a raw bbox window would composite ink from
-                # neighboring words whose chars carry no labels on this
-                # region's copy; the reference masks to the extended
-                # region polygon, page_text_region.py:478-558).
-                region, w, quad = region_row(pos)
-                sids[row] = region.page_id
-                ups[row] = w.up
-                lefts[row] = w.left
-                hs[row] = w.height
-                ws[row] = w.width
-                quads[row] = quad
-                angles[row] = region.angle_deg
-                scales[row] = region.scale
-                extents[row] = (w.height, w.width)
-                chunk_of[pos] = (tile, ci, row)
-
-            with measure('region.gather+flatten'):
-                stack_dev = gather_region_windows(
-                    images_dev, active_dev, sids, ups, lefts, hs, ws,
-                    quads, tile=tile,
-                )
-                warped_dev, w_extents, mats = batch_flatten_regions(
-                    stack_dev, angles, scales, dst_tile,
-                    content_extents=extents, return_mats=True,
-                )
-                del stack_dev
-            flat_warped[(tile, ci)] = warped_dev
+            chunks.append((tile, dst_tile, sub))
+            mats, w_extents = plan_region_flatten(
+                angles_all[sub], scales_all[sub], tile, dst_tile,
+                content_extents=extents_all[sub],
+            )
 
             # Char polygons through the SAME mats, one einsum per chunk
             # (raw (G, 4, 2) quads when available — no Polygon access).
-            groups, points, counts_per_pos = [], [], []
+            groups_of, points, counts_per_pos = [], [], []
             for row, pos in enumerate(sub):
                 region = regions[pos]
                 origin = np.asarray(
@@ -447,18 +416,18 @@ def stack_text_regions(
                 if q is not None and len(region.char_idxs):
                     rel = q[region.char_idxs] - origin
                     points.append(rel.reshape(-1, 2))
-                    groups.extend([row] * (4 * len(region.char_idxs)))
+                    groups_of.extend([row] * (4 * len(region.char_idxs)))
                     counts = [4] * len(region.char_idxs)
                 else:
                     counts = []
                     for cidx in region.char_idxs:
                         xy = result.char_polygons[region.page_id][cidx].np_xy
                         points.append(xy - origin)
-                        groups.extend([row] * len(xy))
+                        groups_of.extend([row] * len(xy))
                         counts.append(len(xy))
                 counts_per_pos.append(counts)
             mapped = region_flatten_point_map(
-                mats, np.asarray(groups, np.int64),
+                mats, np.asarray(groups_of, np.int64),
                 np.concatenate(points, axis=0),
             ) if points else np.zeros((0, 2))
 
@@ -517,10 +486,6 @@ def stack_text_regions(
 
     background = build_background_image_for_stacking(s, s).mat
 
-    # ------------------------------------------------------------------
-    # Composite: one pass per flatten chunk (rgb + active coverage
-    # together; nothing fetches).
-    # ------------------------------------------------------------------
     region_boxes: List[List[Box]] = [[] for _ in range(num_pages)]
     page_chars: List[List[Polygon]] = [[] for _ in range(num_pages)]
     box_targets: List[Box] = []
@@ -538,44 +503,82 @@ def stack_text_regions(
                 poly.to_shifted_polygon(up, left)
             )
 
-    # Positions grouped per flatten chunk (the tiles arrays are the
-    # chunked device stacks).
-    chunk_members: Dict[Tuple[int, int], List[int]] = {}
-    for pos in range(len(regions)):
-        tile, ci, _ = chunk_of[pos]
-        chunk_members.setdefault((tile, ci), []).append(pos)
+    # ------------------------------------------------------------------
+    # Gather, flatten and composite a chunk at a time (rgb + active
+    # coverage together; nothing fetches).  Packed boxes never overlap,
+    # so the chunks' order changes no pixel.
+    # ------------------------------------------------------------------
+    out = convert.to_tensor(background, device).expand(
+        m_pad, s, s, 3).contiguous()
+    active_acc = torch.zeros((m_pad, s, s), dtype=torch.float32,
+                             device=device)
+    for tile, dst_tile, sub in chunks:
+        rows = len(sub)
+        sids = np.zeros(rows, np.int32)
+        ups = np.zeros(rows, np.int32)
+        lefts = np.zeros(rows, np.int32)
+        hs = np.ones(rows, np.float32)
+        ws = np.ones(rows, np.float32)
+        quads = np.zeros((rows, 4, 2), np.float32)
+        for row, pos in enumerate(sub):
+            # Dilated word polygon, window-relative (the region mask — a
+            # raw bbox window would composite ink from neighboring words
+            # whose chars carry no labels on this region's copy; the
+            # reference masks to the extended region polygon,
+            # page_text_region.py:478-558).
+            region = regions[pos]
+            w = region.window
+            xy = region.poly_xy
+            if xy.shape[0] == 4:
+                rel = xy - np.asarray([w.left, w.up], np.float64)
+            else:  # non-quad word outline: fall back to the window bbox
+                rel = np.asarray([
+                    (0, 0), (w.width - 1.0, 0),
+                    (w.width - 1.0, w.height - 1.0), (0, w.height - 1.0),
+                ])
+            center = rel.mean(axis=0)
+            sids[row] = region.page_id
+            ups[row] = w.up
+            lefts[row] = w.left
+            hs[row] = w.height
+            ws[row] = w.width
+            quads[row] = center + (rel - center) * (1.0 + config.dilate_ratio)
 
-    with measure('region.composite'):
-        out = convert.to_tensor(background, device).expand(
-            m_pad, s, s, 3).contiguous()
-        active_acc = torch.zeros((m_pad, s, s), dtype=torch.float32,
-                                 device=device)
-        for (tile, ci), members in sorted(chunk_members.items()):
-            dst_tile = bucket_dst_tile[tile]
-            warped_dev = flat_warped.pop((tile, ci))
+        with measure('region.gather+flatten'):
+            stack_dev = gather_region_windows(
+                images_dev, active_dev, sids, ups, lefts, hs, ws,
+                quads, tile=tile,
+            )
+            warped_dev, _ = batch_flatten_regions(
+                stack_dev, angles_all[sub], scales_all[sub], dst_tile,
+                content_extents=extents_all[sub],
+            )
+            del stack_dev
+
+        with measure('region.composite'):
             tiles_a = (warped_dev[..., 3] > 0.5).to(torch.float32)
             tiles_rgb = torch.clamp(warped_dev[..., :3], 0, 255)
             del warped_dev
-            rows = []
-            for pos in members:
-                row = chunk_of[pos][2]
+            placement_rows = []
+            for row, pos in enumerate(sub):
                 target = box_targets[pos]
                 th = target.down - target.up + 1
                 tw = target.right - target.left + 1
-                rows.append({
+                placement_rows.append({
                     'glyph_id': row, 'sample_id': page_of[pos],
                     'up': target.up, 'left': target.left,
                     'dst_h': th, 'dst_w': tw,
                     'src_h': float(th), 'src_w': float(tw),
                     'color': np.zeros(3, np.float32),
                 })
-            placements_dev = build_placements(rows, bucket=8)
+            placements_dev = build_placements(placement_rows, bucket=8)
             use_rgbs = np.ones(placements_dev.num_rows, dtype=np.float32)
             out, active_acc = composite_patches_and_alpha(
                 out, active_acc, tiles_a, tiles_rgb, use_rgbs,
                 placements_dev, out_tile=dst_tile,
             )
-        active = (active_acc > 0.5).to(torch.uint8)
+            del tiles_a, tiles_rgb
+    active = (active_acc > 0.5).to(torch.uint8)
 
     # ------------------------------------------------------------------
     # Labels: device gaussians + vectorized regression encodings.
@@ -636,6 +639,8 @@ def stack_text_regions(
             crop_gaussians = labs[..., 0]
             crop_page_ids = np.asarray(sids, np.int32)
 
+    profiling.count('synth.region_pages', num_pages)
+    profiling.count('synth.region_crops', num_crops)
     if not keep_on_device:
         out = out.cpu().numpy()[:num_pages]
         active = active.cpu().numpy()[:num_pages]
