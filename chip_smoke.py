@@ -37,7 +37,12 @@ Phases, one line each (plus detail lines):
      calls, runs at K1's captured rows' RGB planes, one plane per row; K2
      (row_shift), which only the spread split routes, at a 1400-lane
      source cut to 700 outputs, and for exactness at odd widths, the widest
-     output, starts that clamp and rows off 16-byte alignment.  Then the
+     output, starts that clamp and rows off 16-byte alignment.  The
+     two-shear warp's slab and blend kernels (quadrant_slab, line_blend),
+     bit for bit, at the launches of one warp of the rotate cell (32 x
+     640x640x5, rotate plans 73-89 degrees either way: the slab and both
+     passes' blends) and at the region flatten's largest launches of the
+     captured batch, with their times and bounds.  Then the
      row-shift launches of phase 6's other two paths, recorded in one call
      each on the inputs phase 6 rebuilds from the same seeds (both passes
      of the one-program chain at 64 x 640x640x3 and of the dense warp at 8 x
@@ -173,10 +178,15 @@ KERNEL_SOURCES = {
                              'vkit_tpu/ops/pallas_kernels.py:341'),
     'row_shift_window': ('vkit_tpu_torch/ops/csrc/row_shift.cu',
                          'vkit_tpu/ops/pallas_kernels.py:136'),
+    # No TPU kernel: XLA fuses this work of vkit_tpu/ops/warp_mxu.py.
+    'quadrant_slab': ('vkit_tpu_torch/ops/csrc/two_shear.cu',
+                      'none (XLA: vkit_tpu/ops/warp_mxu.py:407)'),
+    'line_blend': ('vkit_tpu_torch/ops/csrc/two_shear.cu',
+                   'none (XLA: vkit_tpu/ops/warp_mxu.py:164)'),
 }
 # The kernels the main path runs; K4 has no caller on any path.
 MAIN_PATH_KERNELS = ('row_shift_window_slab', 'row_shift',
-                     'banded_line_resample')
+                     'banded_line_resample', 'quadrant_slab', 'line_blend')
 # The kernels of the stream that feeds training (no spread split there).
 TRAINING_PATH_KERNELS = ('row_shift_window_slab', 'banded_line_resample')
 # The card's published peaks (H100 SXM data sheet): device memory bytes/s,
@@ -434,12 +444,13 @@ def count_banded_shapes():
 def capture_main_path_args(device, planner, seed: int = 400, batch: int = 8,
                            side: int = 640):
     """Runs one synth-640 batch (level 5, two crops per page, photometric
-    stage and text-region stream on) with recorders around the K1 and K3
-    wrappers that ops/warp_mxu.py and ops/warp_banded.py call.  Returns
-    {kernel: (args, kwargs) of its first launch, copied}, under
-    'row_shift_window_slab/flatten' K1's largest launch of another shape
-    (the region flatten's), and the batch's launches per kernel.  Untimed,
-    and outside the counted main-path run."""
+    stage and text-region stream on) with recorders around the K1, K3,
+    slab and blend wrappers that ops/warp_mxu.py and ops/warp_banded.py
+    call.  Returns {kernel: (args, kwargs) of its first launch, copied},
+    under '<kernel>/flatten' the largest launch of another shape of K1,
+    the slab and the blend (the region flatten's), and the batch's
+    launches per kernel.  Untimed, and outside the counted main-path
+    run."""
     from vkit_tpu_torch.ops import kernels as K
     from vkit_tpu_torch.ops import warp_banded, warp_mxu
     from vkit_tpu_torch.synth import (
@@ -449,16 +460,19 @@ def capture_main_path_args(device, planner, seed: int = 400, batch: int = 8,
     )
 
     captured = {}
-    flatten = 'row_shift_window_slab/flatten'
     sites = ((warp_mxu, 'row_shift_window_slab'),
-             (warp_banded, 'banded_line_resample'))
+             (warp_banded, 'banded_line_resample'),
+             (warp_mxu, 'quadrant_slab'), (warp_mxu, 'line_blend'))
+    with_flatten = ('row_shift_window_slab', 'quadrant_slab', 'line_blend')
     originals = [getattr(module, name) for module, name in sites]
 
     def recorder(name, real):
+        flatten = f'{name}/flatten'
+
         def record(*args, **kwargs):
             if name not in captured:
                 captured[name] = copy_call(args, kwargs)
-            elif (name == 'row_shift_window_slab'
+            elif (name in with_flatten
                   and args[0].shape != captured[name][0][0].shape
                   and (flatten not in captured or args[0].numel()
                        > captured[flatten][0][0].numel())):
@@ -484,14 +498,15 @@ def capture_main_path_args(device, planner, seed: int = 400, batch: int = 8,
                 setattr(module, name, real)
         launches = {name: K.LAUNCHES[name] - before[name]
                     for name in K.LAUNCHES}
-        if len(captured) == len(sites) + 1:
+        if len(captured) == len(sites) + len(with_flatten):
             return captured, launches
         log(f'    capture batch {attempt}: launches {launches}; '
             'drawing another batch')
         captured.clear()
         before = dict(K.LAUNCHES)
-    raise RuntimeError('chip_smoke: no synth-640 batch launched K1 (page '
-                       'warp and region flatten) and K3')
+    raise RuntimeError('chip_smoke: no synth-640 batch launched K1, the '
+                       'slab and the blend (page warp and region flatten) '
+                       'and K3')
 
 
 def window_read_floats(starts, width: int, out_width: int) -> int:
@@ -862,6 +877,89 @@ def kernel_phase(device, captured):
     return results
 
 
+def slab_work(images, quadrants=None):
+    """(bytes, operations) of one ``quadrant_slab`` call: the images, the
+    quadrants and the float32 slab, each once; no arithmetic."""
+    floats_out = images.numel()
+    turned = quadrants is not None and np.any(quadrants)
+    nbytes = (images.numel() * images.element_size() + 4 * floats_out
+              + (4 * len(quadrants) if turned else 0))
+    return float(nbytes), 0.0
+
+
+def blend_work(window, i0, frac_j, phi, layout):
+    """(bytes, operations) of one ``line_blend`` call: the window lanes
+    some tap reads (i0 + {0, 1, 2} of each sample, in every line and
+    channel), i0, frac_j, phi and the output, each once; the hat weights
+    (6 operations per (line, output)) and the blend (5 per channel)."""
+    n, lines, channels, _ = window.shape
+    jn = i0.shape[1]
+    taps = i0.cpu().numpy().astype(np.int64)
+    lanes = sum(len(np.unique(np.concatenate([row, row + 1, row + 2])))
+                for row in taps)
+    floats = (lanes * lines * channels + 2 * n * jn + n * lines
+              + n * lines * channels * jn)
+    return 4.0 * floats, float(n * lines * jn * (6 + 5 * channels))
+
+
+def compare_two_shear(label: str, name: str, args):
+    """compare() of one recorded slab or blend launch, which must be
+    bit-exact; no library call computes either function."""
+    from vkit_tpu_torch.ops import kernels as K
+
+    kernel, plain = getattr(K, name), getattr(K, f'{name}_plain')
+    work = slab_work if name == 'quadrant_slab' else blend_work
+    result = compare(label, lambda: kernel(*args), lambda: plain(*args),
+                     tol=0.0, work=work(*args))
+    check(result['bit_exact'], f'{label}: not bit-exact')
+    x, detail = args[0], args[1]
+    if name == 'line_blend':
+        detail = f'-> {detail.shape[1]}, {args[4]}'
+    elif detail is not None:
+        detail = f'quadrants {np.bincount(detail, minlength=4).tolist()}'
+    result['shape'] = f'{tuple(x.shape)} {str(x.dtype)[6:]} {detail}'
+    return result
+
+
+def two_shear_phase(device, captured):
+    """The slab and blend kernels against their plain versions, bit for
+    bit, with their times and bounds: at the launches of one warp of the
+    rotate cell (the slab, pass V's and pass H's blend) and at the region
+    flatten's largest launches of a synth-640 batch.  Returns {label:
+    compare() result}; 'quadrant_slab' and 'line_blend' are the rotate
+    cell's slab and pass V blend."""
+    import torch
+
+    from tests.two_shear_cases import rotate_call
+    from vkit_tpu_torch.ops import kernels as K
+    from vkit_tpu_torch.ops import warp_mxu
+
+    calls = record_calls(rotate_call(device), warp_mxu,
+                         ('quadrant_slab', 'line_blend'))
+    sync(device)
+    check([name for name, _, _ in calls]
+          == ['quadrant_slab', 'line_blend', 'line_blend'],
+          f'rotate warp: launches {[name for name, _, _ in calls]}')
+    check(set(np.asarray(calls[0][1][1]).tolist()) == {1, 3},
+          'rotate warp: quadrants other than 1 and 3')
+    results = {}
+    for label, (name, args, _) in zip(
+            ('quadrant_slab', 'line_blend', 'line_blend/rotate pass H'),
+            calls):
+        results[label] = compare_two_shear(label, name, args)
+    del calls
+    torch.cuda.empty_cache()
+    for name in ('quadrant_slab', 'line_blend'):
+        label = f'{name}/flatten'
+        args, kwargs = captured[label]
+        check(not kwargs, f'{label}: keyword arguments {kwargs}')
+        results[label] = compare_two_shear(f'{name} (region flatten)', name,
+                                           args)
+        torch.cuda.empty_cache()
+    check(K.LAUNCHES['line_blend'] > 0, 'line_blend never launched')
+    return results
+
+
 def banded_random_case(gen, device, n: int, lines: int, channels: int,
                        width: int, jp: int, taps: int):
     """Random K3 inputs: a source of ``channels`` x ``width`` (None when 0),
@@ -1147,6 +1245,8 @@ KERNEL_FUNCTIONS = {
     'row_shift_window': 'row_shift_window_slab_kernel',
     'row_shift': 'row_shift_kernel',
     'banded_line_resample': 'banded_resample_kernel',
+    'quadrant_slab': 'quadrant_slab_kernel',
+    'line_blend': 'line_blend_kernel',
 }
 
 
@@ -1452,11 +1552,15 @@ def stage_spans(device, planner, seed: int, side: int = 640,
             region_count += sum(len(b) for b in
                                 result.text_regions.region_boxes)
     for name in ('photometric', 'char-gaussians', 'region',
-                 'region.collect-host', 'region.composite',
-                 'region.gaussians', 'region.regression-host'):
+                 'region.collect-host', 'region.gaussians',
+                 'region.regression-host'):
         check(timer.counts[name] == batches, f'the {name} span did not run')
-    check(timer.counts['region.gather+flatten'] >= batches,
-          'the region.gather+flatten span did not run')
+    # The region stream gathers, flattens and composites a chunk at a time.
+    chunks = timer.counts['region.gather+flatten']
+    check(chunks >= batches, 'the region.gather+flatten span did not run')
+    check(timer.counts['region.composite'] == chunks,
+          f'{timer.counts["region.composite"]} region.composite spans for '
+          f'{chunks} flattened chunks')
     return ({name: timer.totals[name] / batches for name in timer.totals},
             region_count / batches)
 
@@ -2973,6 +3077,7 @@ def main() -> int:
     log(f'[3 capture] launches in one synth-640 batch (8 pages, level 5, '
         f'text-region stream on): {per_batch}')
     kernels = kernel_phase(device, captured)
+    kernels.update(two_shear_phase(device, captured))
     del captured
     # K1 and K2 as phase 6's other two paths launch them: the same seeds
     # give phase 6 the same arguments.
@@ -2981,7 +3086,8 @@ def main() -> int:
     # K1's other shapes are log lines; the JSON line has one entry a kernel.
     shapes = dict(kernels)
     shapes.update(path_kernel_phase(device, chain, *dense_in[1:3]))
-    del kernels['row_shift_window_slab/flatten']
+    for label in [label for label in kernels if '/' in label]:
+        del kernels[label]
     del chain_images, chain, dense_in
     torch.cuda.empty_cache()
     for name, res in shapes.items():

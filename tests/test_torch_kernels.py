@@ -14,6 +14,9 @@ import torch
 from vkit_tpu.ops import pallas_kernels as PK
 from vkit_tpu_torch import convert
 from vkit_tpu_torch.ops import kernels as K
+from vkit_tpu_torch.ops import warp_mxu
+
+from tests import two_shear_cases as TS
 
 torch.set_num_threads(1)
 
@@ -333,6 +336,80 @@ def test_wrappers_reject_bad_input(case):
                                    torch.from_numpy(pos), 129)
         else:
             K.row_shift_window_slab(xt.transpose(0, 1), st.T, ow)
+
+
+@pytest.mark.parametrize('dtype', TS.DTYPES, ids=TS.dtype_id)
+@pytest.mark.parametrize('channels', TS.CHANNELS)
+@pytest.mark.parametrize('kind', TS.QUADRANT_KINDS)
+def test_quadrant_slab_plain_equals_the_composed_ops(kind, channels, dtype):
+    images, quadrants = TS.slab_case(kind, channels, dtype)
+    want = TS.composed_slab(images, quadrants)
+    assert torch.equal(K.quadrant_slab(images, quadrants), want)
+    if kind == 'zero':
+        assert torch.equal(K.quadrant_slab(images), want)
+
+
+@pytest.mark.parametrize('layout', list(K.LINE_BLEND_LAYOUTS))
+@pytest.mark.parametrize('border', [0.0, 255.0])
+@pytest.mark.parametrize('channels', TS.CHANNELS)
+@pytest.mark.parametrize('route', TS.ROUTES)
+def test_line_blend_plain_equals_the_composed_ops(route, channels, border,
+                                                  layout):
+    window, plan = TS.blend_case(route, channels, border)
+    got = K.line_blend(window, plan.i0, plan.frac_j, plan.phi, layout)
+    want = TS.composed_blend(window, plan, layout)
+    assert got.is_contiguous() and torch.equal(got, want)
+
+
+@pytest.mark.parametrize('border', [0.0, 255.0])
+@pytest.mark.parametrize('dtype', TS.DTYPES, ids=TS.dtype_id)
+@pytest.mark.parametrize('kind', TS.QUADRANT_KINDS)
+def test_affine_warp_equals_the_composed_ops(kind, dtype, border):
+    """The whole two-shear warp through the slab and blend against the
+    composition it replaced, bit for bit."""
+    images, quadrants, plan, statics = TS.affine_case(kind, dtype)
+    want = TS.composed_affine_warp(images, quadrants, plan, statics, border)
+    got = warp_mxu.apply_affine_warp_quad(images, quadrants, plan, statics,
+                                          border_value=border)
+    assert got.dtype == dtype and torch.equal(got, want)
+    if kind == 'zero':
+        assert not quadrants.any()
+        assert torch.equal(warp_mxu.apply_affine_warp(
+            images, plan, statics, border_value=border), want)
+
+
+@pytest.mark.parametrize('case', [
+    'slab_dtype', 'slab_shape', 'slab_contiguous', 'slab_quadrant_range',
+    'slab_quadrant_shape', 'slab_turn_non_square', 'blend_dtype',
+    'blend_shape', 'blend_contiguous', 'blend_width', 'blend_layout',
+])
+def test_two_shear_wrappers_reject_bad_input(case):
+    images, quadrants = TS.slab_case('mixed', 5, torch.float32)
+    window, plan = TS.blend_case('k1', 5, 0.0)
+    args = [window, plan.i0, plan.frac_j, plan.phi]
+    with pytest.raises((TypeError, ValueError)):
+        if case == 'slab_dtype':
+            K.quadrant_slab(images.double(), quadrants)
+        elif case == 'slab_shape':
+            K.quadrant_slab(images[0], quadrants)
+        elif case == 'slab_contiguous':
+            K.quadrant_slab(images.transpose(1, 2), quadrants)
+        elif case == 'slab_quadrant_range':
+            K.quadrant_slab(images, quadrants + 1)
+        elif case == 'slab_quadrant_shape':
+            K.quadrant_slab(images, quadrants[:-1])
+        elif case == 'slab_turn_non_square':
+            K.quadrant_slab(images[:, :-1].contiguous(), quadrants)
+        elif case == 'blend_dtype':
+            K.line_blend(window, plan.i0.long(), *args[2:])
+        elif case == 'blend_shape':
+            K.line_blend(window, plan.i0, plan.frac_j, plan.phi[:, :-1])
+        elif case == 'blend_contiguous':
+            K.line_blend(window.transpose(0, 1), *args[1:])
+        elif case == 'blend_width':
+            K.line_blend(window[..., :2].contiguous(), *args[1:])
+        else:
+            K.line_blend(*args, layout='nclj')
 
 
 def test_port_never_imports_jax():

@@ -8,16 +8,31 @@ vkit_tpu/ops/pallas_kernels.py:
   banded_line_resample   (csrc/banded_resample.cu)  <- banded_line_resample
   row_shift_window       (csrc/row_shift.cu)        <- row_shift_window
 
-Which path launches which: the two-shear affine warp (ops/warp_mxu.py)
-launches ``row_shift_window_slab`` once per pass, or ``row_shift`` where a
-pass's span fails the 2048-lane window (a 1400-lane spread cut to 700); it
-serves the page warp of synth/device.py and RandomDistortion, the
-text-region stream's flatten (ops/region.py, twice per flatten chunk), and
-step 15 of the text-detection pipeline (pipeline/text_detection/
-page_text_region.py, twice per source-tile bucket of its flatten).  The
-banded two-pass warp (ops/warp_banded.py) launches ``banded_line_resample``
-once per pass for smooth fields.  ``row_shift_window`` (K1 with one channel)
-has no caller on a path, in the JAX package or here.
+and two more do the two-shear warp's work around its row shifts, which the
+JAX package leaves to XLA:
+
+  quadrant_slab          (csrc/two_shear.cu)  <- jnp.rot90 / jnp.where of
+                                                  apply_affine_warp_quad and
+                                                  the transpose before pass V
+  line_blend             (csrc/two_shear.cu)  <- apply_line_resample's one-hot
+                                                  einsum and weighted sum and
+                                                  the transposes after it
+
+Which path launches which: the two-shear affine warp (ops/warp_mxu.py
+``apply_affine_warp`` and ``apply_affine_warp_quad``) launches
+``quadrant_slab`` once, then per pass ``row_shift_window_slab``, or
+``row_shift`` where a pass's span fails the 2048-lane window (a 1400-lane
+spread cut to 700), and ``line_blend`` after it (``apply_line_resample``
+launches the last two alone); it serves the page warp of synth/device.py
+and RandomDistortion (mechanism/batched.py's affine route), the one-program
+chain (parallel/batch.py), the train step's label warp (entry.py), the
+text-region stream's flatten (ops/region.py, per flatten chunk), and step
+15 of the text-detection pipeline (pipeline/text_detection/
+page_text_region.py, per source-tile bucket of its flatten).  The dense
+two-pass (``apply_dense_warp``) launches the row shifts alone.  The banded
+two-pass warp (ops/warp_banded.py) launches ``banded_line_resample`` once
+per pass for smooth fields.  ``row_shift_window`` (K1 with one channel) has
+no caller on a path, in the JAX package or here.
 
 The sources build at first use with ``nvcc`` (one process per source, all
 started together, then one link) into one shared library with a plain C
@@ -45,6 +60,7 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..convert import DeviceError
@@ -52,7 +68,7 @@ from ..convert import DeviceError
 _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / 'csrc'
 _BUILD = _HERE / 'build'
-_SOURCES = ('row_shift.cu', 'banded_resample.cu')
+_SOURCES = ('row_shift.cu', 'banded_resample.cu', 'two_shear.cu')
 _HEADERS = ('tma.cuh',)
 _NVCC_FLAGS = (
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
@@ -71,6 +87,8 @@ LAUNCHES = {
     'row_shift': 0,
     'banded_line_resample': 0,
     'row_shift_window': 0,
+    'quadrant_slab': 0,
+    'line_blend': 0,
 }
 
 _lib = None
@@ -171,6 +189,14 @@ def load_library() -> ctypes.CDLL:
             ptr, ptr, ptr, i64, i32, i32, f32, ptr,
         ]
         lib.vk_row_shift_window.restype = i32
+        lib.vk_quadrant_slab.argtypes = [
+            ptr, i32, ptr, ptr, i64, i32, i32, i32, ptr,
+        ]
+        lib.vk_quadrant_slab.restype = i32
+        lib.vk_line_blend.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, i32, ptr,
+        ]
+        lib.vk_line_blend.restype = i32
         _lib = lib
         return lib
 
@@ -495,4 +521,146 @@ def banded_line_resample(x, base, pos, taps: int,
         _stream(),
     )
     _check_launch('banded_line_resample', code)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The two-shear warp's slab and blend (csrc/two_shear.cu).
+# ---------------------------------------------------------------------------
+
+
+def rot90_samples(images, quadrants):
+    """Per-sample ``np.rot90(image, k, axes=(1, 2))`` with k from
+    ``quadrants`` (host (N,) ints).  k in {1, 3} needs a square image."""
+    quadrants = np.asarray(quadrants)
+    out = images
+    for k in (1, 2, 3):
+        sel = np.flatnonzero(quadrants == k)
+        if len(sel) == 0:
+            continue
+        if out is images:
+            out = images.clone()
+        idx = torch.as_tensor(sel, device=images.device)
+        out[idx] = torch.rot90(images[idx], k, (1, 2))
+    return out
+
+
+def quadrant_slab_plain(images, quadrants=None):
+    """Plain twin of ``quadrant_slab``: ``rot90_samples``, the cast to
+    float32 and the transpose to pass V's slab."""
+    if quadrants is not None:
+        images = rot90_samples(images, quadrants)
+    return images.to(torch.float32).permute(0, 2, 3, 1).contiguous()
+
+
+def quadrant_slab(images, quadrants=None):
+    """Pass V's slab of the two-shear warp: ``out[n, u, c, y] =
+    rot90(images[n], k)[y, u, c]`` as float32, k = ``quadrants[n]``
+    (``np.rot90`` on axes (1, 2)).
+
+    ``images``: (N, H, W, C) uint8 or float32; ``quadrants``: None (every
+    k 0) or host (N,) ints in 0..3, where 1 and 3 need ``H == W``.
+    Returns (N, W, C, H) float32."""
+    if not isinstance(images, torch.Tensor):
+        raise TypeError(f'images must be a torch.Tensor, got {type(images)}')
+    if images.dtype not in (torch.uint8, torch.float32):
+        raise TypeError(f'images must be uint8 or float32, got {images.dtype}')
+    _check_tensor('images', images, images.dtype, 4, images.device)
+    n, h, w, c = images.shape
+    if quadrants is not None:
+        quadrants = np.asarray(quadrants)
+        if quadrants.shape != (n,) or quadrants.dtype.kind not in 'iu':
+            raise ValueError(f'quadrants must be ({n},) ints, got '
+                             f'{quadrants.dtype} {quadrants.shape}')
+        if ((quadrants < 0) | (quadrants > 3)).any():
+            raise ValueError('quadrants must lie in 0..3')
+        if h != w and (quadrants % 2 == 1).any():
+            raise ValueError(f'quadrants 1 and 3 need a square image, got '
+                             f'{h} x {w}')
+        if not quadrants.any():
+            quadrants = None
+    if images.device.type == 'cpu':
+        return quadrant_slab_plain(images, quadrants)
+    out = torch.empty((n, w, c, h), dtype=torch.float32, device=images.device)
+    if out.numel() == 0:
+        return out
+    quads = (None if quadrants is None else
+             torch.from_numpy(quadrants.astype(np.int32)).to(images.device))
+    lib = load_library()
+    code = lib.vk_quadrant_slab(
+        _ptr(images), int(images.dtype == torch.uint8),
+        None if quads is None else _ptr(quads), _ptr(out), n, h, w, c,
+        _stream(),
+    )
+    _check_launch('quadrant_slab', code)
+    return out
+
+
+# The blend's output layouts: the order of (N, L, C, J)'s axes in memory.
+LINE_BLEND_LAYOUTS = {
+    'nlcj': (0, 1, 2, 3),   # apply_line_resample's own output
+    'njcl': (0, 3, 2, 1),   # pass V's output as pass H's slab
+    'nljc': (0, 1, 3, 2),   # pass H's output as (N, H_out, W_out, C)
+}
+
+
+def line_blend_plain(window, i0, frac_j, phi, layout: str = 'nlcj'):
+    """Plain twin of ``line_blend``: the 3-tap gather at i0 + {0, 1, 2} and
+    the hat blend (the reference's one-hot einsum + weighted sum, same
+    summation order), then the layout's copy."""
+    n, l, c, _ = window.shape
+    jn = i0.shape[1]
+    idx = i0.to(torch.int64)[:, None, None, :].expand(n, l, c, jn)
+    a0 = torch.gather(window, 3, idx)
+    a1 = torch.gather(window[..., 1:], 3, idx)
+    a2 = torch.gather(window[..., 2:], 3, idx)
+
+    u = frac_j[:, None, :] + phi[:, :, None]               # (N, L, J)
+    w0 = torch.clamp(1.0 - u, min=0.0)
+    w2 = torch.clamp(u - 1.0, min=0.0)
+    w1 = 1.0 - w0 - w2
+    w0, w1, w2 = (w[:, :, None, :] for w in (w0, w1, w2))
+    out = a0 * w0 + a1 * w1 + a2 * w2                       # (N, L, C, J)
+    return out.permute(*LINE_BLEND_LAYOUTS[layout]).contiguous()
+
+
+def line_blend(window, i0, frac_j, phi, layout: str = 'nlcj'):
+    """``out[n, l, c, j] = a0 * w0 + a1 * w1 + a2 * w2`` with ``a_t =
+    window[n, l, c, i0[n, j] + t]`` and the hat weights of ``u = frac_j[n,
+    j] + phi[n, l]``: ``w0 = max(1 - u, 0)``, ``w2 = max(u - 1, 0)``, ``w1
+    = 1 - w0 - w2``.
+
+    ``window``: (N, L, C, M) float32, M >= 3 (a row-shift kernel's
+    output); ``i0``: (N, J) int32 in [0, M - 3]; ``frac_j``: (N, J) and
+    ``phi``: (N, L) float32.  ``layout`` orders the output's axes in memory
+    (LINE_BLEND_LAYOUTS): 'nlcj' (N, L, C, J), 'njcl' (N, J, C, L) or
+    'nljc' (N, L, J, C)."""
+    _check_tensor('window', window, torch.float32, 4, window.device)
+    _check_tensor('i0', i0, torch.int32, 2, window.device)
+    _check_tensor('frac_j', frac_j, torch.float32, 2, window.device)
+    _check_tensor('phi', phi, torch.float32, 2, window.device)
+    n, l, c, m = window.shape
+    jn = i0.shape[1]
+    if tuple(i0.shape) != (n, jn) or tuple(frac_j.shape) != (n, jn):
+        raise ValueError(f'i0 {tuple(i0.shape)} and frac_j '
+                         f'{tuple(frac_j.shape)} must be ({n}, J)')
+    if tuple(phi.shape) != (n, l):
+        raise ValueError(f'phi {tuple(phi.shape)} != {(n, l)}')
+    if m < 3:
+        raise ValueError(f'window width {m} < 3 taps')
+    if layout not in LINE_BLEND_LAYOUTS:
+        raise ValueError(f'unknown layout {layout!r}')
+    if window.device.type == 'cpu':
+        return line_blend_plain(window, i0, frac_j, phi, layout)
+    dims = (n, l, c, jn)
+    out = torch.empty([dims[d] for d in LINE_BLEND_LAYOUTS[layout]],
+                      dtype=torch.float32, device=window.device)
+    if out.numel() == 0:
+        return out
+    lib = load_library()
+    code = lib.vk_line_blend(
+        _ptr(window), _ptr(i0), _ptr(frac_j), _ptr(phi), _ptr(out), n, l, c,
+        m, jn, list(LINE_BLEND_LAYOUTS).index(layout), _stream(),
+    )
+    _check_launch('line_blend', code)
     return out

@@ -17,8 +17,12 @@ vkit_tpu_torch.convert moves it to a device.
 The integer part of each line's offset is a per-row shift (the row-shift
 kernels of ops/kernels.py); what is left is a gather of 3 taps (affine) or
 T taps (dense) and a hat blend.  The reference built that blend as a
-one-hot matmul for the TPU's matrix unit; a gather computes the same
-values without the one-hot operand.
+one-hot matmul for the TPU's matrix unit.  The affine warp's 3-tap blend is
+a kernel of its own (``line_blend``) that stores straight into the layout
+the next step reads, and its pass V input comes from one more
+(``quadrant_slab``: each sample's rot90 quadrant, the float32 cast and the
+slab transpose in one pass); the dense warp's T-tap blend is a gather per
+tap.
 """
 from typing import NamedTuple, Optional, Tuple
 
@@ -27,7 +31,14 @@ import torch
 import torch.nn.functional as F
 
 from .. import convert
-from .kernels import ROLL_WINDOW, WINDOW, row_shift, row_shift_window_slab
+from .kernels import (
+    ROLL_WINDOW,
+    WINDOW,
+    line_blend,
+    quadrant_slab,
+    row_shift,
+    row_shift_window_slab,
+)
 from .warp import to_image_dtype
 
 # The reference planner's name for the roll kernel's window.
@@ -554,23 +565,16 @@ def apply_line_resample(x_slab, plan: LineResamplePlan,
     """Resample (N, L, C, M_in) float32 along the last axis ->
     (N, L, C, out_len).  ``plan`` holds tensors on ``x_slab``'s device
     (convert.line_resample_plan)."""
-    n, l, c, _ = x_slab.shape
+    return _resample_lines(x_slab, plan, statics, border_value, 'nlcj')
+
+
+def _resample_lines(x_slab, plan: LineResamplePlan,
+                    statics: LineResampleStatics, border_value: float,
+                    layout: str):
+    """``apply_line_resample`` with its output in ``layout``
+    (kernels.LINE_BLEND_LAYOUTS)."""
     shifted = _shift_lines(x_slab, plan.starts, statics, border_value)
-
-    # 3-tap gather at i0 + {0, 1, 2} and the hat blend (the reference's
-    # one-hot einsum + weighted sum, same summation order).
-    jn = statics.out_len
-    i0 = plan.i0.to(torch.int64)[:, None, None, :].expand(n, l, c, jn)
-    a0 = torch.gather(shifted, 3, i0)
-    a1 = torch.gather(shifted[..., 1:], 3, i0)
-    a2 = torch.gather(shifted[..., 2:], 3, i0)
-
-    u = plan.frac_j[:, None, :] + plan.phi[:, :, None]     # (N, L, J)
-    w0 = torch.clamp(1.0 - u, min=0.0)
-    w2 = torch.clamp(u - 1.0, min=0.0)
-    w1 = 1.0 - w0 - w2
-    w0, w1, w2 = (w[:, :, None, :] for w in (w0, w1, w2))
-    return a0 * w0 + a1 * w1 + a2 * w2                      # (N, L, C, J)
+    return line_blend(shifted, plan.i0, plan.frac_j, plan.phi, layout)
 
 
 def _two_pass(images, resample, plan, statics, border_value: float):
@@ -593,10 +597,31 @@ def _two_pass(images, resample, plan, statics, border_value: float):
     return out if had_c else out[..., 0]
 
 
+def _affine_two_pass(images, quadrants, plan: AffineWarpPlan,
+                     statics: AffineWarpStatics, border_value: float):
+    """The affine warp of (N, H, W, C) or (N, H, W) images, each sample
+    first turned by its quadrant (None: none): the quadrant slab, then
+    each pass's row shifts and blend, pass V's blend storing pass H's slab
+    (N, H_out, C, W_in) and pass H's the (N, H_out, W_out, C) result."""
+    had_c = images.dim() == 4
+    if not had_c:
+        images = images[..., None]
+    orig_dtype = images.dtype
+    if orig_dtype != torch.uint8:
+        images = images.to(torch.float32)
+    slab = quadrant_slab(images.contiguous(), quadrants)   # (N, W_in, C, H_in)
+    x_h = _resample_lines(slab, plan.pass_v, statics.statics_v, border_value,
+                          'njcl')
+    out = _resample_lines(x_h, plan.pass_h, statics.statics_h, border_value,
+                          'nljc')
+    out = to_image_dtype(out, orig_dtype)
+    return out if had_c else out[..., 0]
+
+
 def apply_affine_warp(images, plan: AffineWarpPlan, statics: AffineWarpStatics,
                       border_value: float = 0.0):
     """Warp (N, H, W, C) float32/uint8 by the planned decomposition."""
-    return _two_pass(images, apply_line_resample, plan, statics, border_value)
+    return _affine_two_pass(images, None, plan, statics, border_value)
 
 
 def warp_affine_batch_mxu(images, trans_mats: np.ndarray,
@@ -611,37 +636,16 @@ def warp_affine_batch_mxu(images, trans_mats: np.ndarray,
     )
 
 
-def rot90_samples(images, quadrants):
-    """Per-sample ``np.rot90(image, k, axes=(1, 2))`` with k from
-    ``quadrants`` (host (N,) ints).  k in {1, 3} needs a square image."""
-    quadrants = np.asarray(quadrants)
-    out = images
-    for k in (1, 2, 3):
-        sel = np.flatnonzero(quadrants == k)
-        if len(sel) == 0:
-            continue
-        if out is images:
-            out = images.clone()
-        idx = torch.as_tensor(sel, device=images.device)
-        out[idx] = torch.rot90(images[idx], k, (1, 2))
-    return out
-
-
 def apply_affine_warp_quad(images, quadrants, plan: AffineWarpPlan,
                            statics: AffineWarpStatics,
                            border_value: float = 0.0):
     """Per-sample rot90 by ``quadrants`` (N,) host ints, then the two-shear
     warp.  Like the reference, a non-square source honours only quadrant 2
     (the reducer picks 1 and 3 for square sources only)."""
-    had_c = images.dim() == 4
-    if not had_c:
-        images = images[..., None]
     quadrants = np.asarray(quadrants)
     if images.shape[1] != images.shape[2]:
         quadrants = np.where(quadrants == 2, 2, 0)
-    images = rot90_samples(images, quadrants)
-    out = apply_affine_warp(images, plan, statics, border_value=border_value)
-    return out if had_c else out[..., 0]
+    return _affine_two_pass(images, quadrants, plan, statics, border_value)
 
 
 def apply_dense_line_resample(x, plan: DenseLinePlan,
